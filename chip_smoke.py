@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's per-frame tracking step on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. device   the card's name and power limit (nvidia-smi), torch/CUDA
+              versions; requires compute capability 9.0 (Hopper)
+  2. build    both kernels from orb_slam_tpu_torch/csrc, one nvcc each, in
+              parallel
+  3. kernel 1 (FAST + NMS + blur) against its plain PyTorch version on a
+              rendered 640x480 frame's [8, 480, 640] pyramid, then timed
+  4. kernel 2 (IC moments + steered BRIEF) against its plain version on the
+              same frame's [8, 217] keypoint slots, then timed
+  5. main path: frame_step at the bench configuration (640x480, 8 levels,
+              1000 features, 8192-point local window, 32768-point pool) on a
+              ground-truth map of 4 views, 30 chained frames on the card;
+              each kernel must launch once per frame, every frame must
+              track, the median camera-centre error must stay under
+              POSE_BOUND_M, and the first 5 frames must agree with the
+              port's CPU path
+  6. report   a JSON line of per-kernel numbers, then the last line
+              {"ok": true, "device": {...}}
+
+Kernel times are CUDA-event means over replays of a captured CUDA graph
+(time_ms), after a warm-up; the plain versions run the same arithmetic as PyTorch ops and are no yardstick
+of speed.  Neither function has a single PyTorch library call, so
+library_ms is null.
+"""
+import json
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and float32 outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+POSE_BOUND_M = 0.05          # median camera-centre error on the card
+CPU_POSE_AGREE_M = 1e-3      # card vs CPU camera centres, first 5 frames
+N_FRAMES = 30
+SYNC_FRAMES = 5              # frames run under torch's sync debug mode
+MAP_VIEWS = (0, 4, 8, 12)    # frames whose features seed the map
+FIRST_TRACKED = 13
+WINDOW, POOL = 8192, 32768
+SEED = 11                    # the bench's texture seed
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 5   # kernel timing (time_ms)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def gpu_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn):
+    """Device ms per call of fn: GRAPH_CALLS calls captured in one CUDA
+    graph, replayed GRAPH_REPLAYS times between CUDA events, so the host's
+    launch overhead (larger than a ~30 us kernel) does not enter the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (GRAPH_CALLS * GRAPH_REPLAYS)
+
+
+def bit_diffs(a, b):
+    """Differing bits per row of two [N, 8] int32 descriptor tables."""
+    x = np.bitwise_xor(a, b).view(np.uint32)
+    return np.unpackbits(x.view(np.uint8), axis=1).sum(axis=1)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+    log(f"  ok: {what}")
+
+
+def bench_configs():
+    """The bench configuration: the camera and the frame_step keywords."""
+    from orb_slam_tpu_torch.config import (CameraConfig, ExtractorConfig,
+                                           MatcherConfig, SolverConfig)
+    cam_cfg = CameraConfig(fx=500, fy=500, cx=320, cy=240, k1=0, k2=0, p1=0,
+                           p2=0, k3=0, width=640, height=480)
+    kw = dict(ext_cfg=ExtractorConfig(n_features=1000, max_keypoints=1024,
+                                      n_levels=8),
+              matcher_cfg=MatcherConfig(window_init=120),
+              solver_cfg=SolverConfig())
+    return cam_cfg, kw
+
+
+def bench_world(dev, n_frames):
+    """The main path's world on `dev`: the camera, the frame_step keywords,
+    the numpy state after the MAP_VIEWS map (built from the port's own
+    extraction on `dev`) and the next `n_frames` rendered frames."""
+    import smoke_world as syn
+    from orb_slam_tpu_torch.frontend.extractor_batched import extract_batched
+    from orb_slam_tpu_torch.geometry.camera import make_camera
+    cam_cfg, kw = bench_configs()
+    renderer, arrays = syn.tracking_world(
+        lambda img: extract_batched(img, kw["ext_cfg"], device=dev),
+        cam_cfg.K, MAP_VIEWS, window=WINDOW, pool=POOL, seed=SEED)
+    frames = [renderer.render(*syn.pose_at(FIRST_TRACKED + k))
+              for k in range(n_frames)]
+    return make_camera(cam_cfg, device=dev), kw, arrays, frames
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import smoke_world as syn
+    from orb_slam_tpu_torch import _build, state as st
+    from orb_slam_tpu_torch.config import ExtractorConfig
+    from orb_slam_tpu_torch.device import resolve_device
+    from orb_slam_tpu_torch.frontend import extractor_batched as eb
+    from orb_slam_tpu_torch.geometry.camera import make_camera
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda, patches
+    from orb_slam_tpu_torch.pipeline import frame_step as fs
+    from orb_slam_tpu_torch.pipeline.track_kernels import HOST_SYNCS_PER_FRAME
+
+    dev = resolve_device("cuda")
+
+    # --- 1. device ---------------------------------------------------------
+    card = gpu_line()
+    log(f"# phase 1: device: {card}")
+    cap = torch.cuda.get_device_capability(0)
+    log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} capability {cap}")
+    check(cap == (9, 0), "compute capability 9.0 (sm_90a build target)")
+
+    # --- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"# phase 2: built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+
+    # --- a 640x480 frame and its pyramid, as the main path builds them ------
+    cam_cfg, kw = bench_configs()
+    ext = kw["ext_cfg"]
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cam_cfg.K)
+    frame0 = renderer.render(*syn.pose_at(FIRST_TRACKED))
+    det = eb.detect_pyramid(eb.to_device_image(frame0, dev), ext,
+                            ext.n_features)
+    stack, dims = det.stack, det.dims
+    L, H, W = stack.shape
+    kernels = []
+
+    # --- 3. kernel 1 -------------------------------------------------------
+    log(f"# phase 3: fast_nms_blur on [{L}, {H}, {W}]")
+    thr, border = float(ext.fast_threshold_min), ext.edge_threshold
+    score_k, blur_k = fast_cuda.fast_nms_blur_stack(stack, dims, thr, border)
+    score_p, blur_p = fast_cuda.fast_nms_blur_plain(stack, dims, thr, border)
+    torch.cuda.synchronize()
+    check(torch.equal(score_k, score_p), "score bit-equal to the plain version")
+    err1 = float((blur_k - blur_p).abs().max())
+    check(err1 <= 1e-3, f"blur max abs err {err1:.3g} <= 1e-3")
+    moved = torch.round(blur_k) != torch.round(blur_p)
+    near_half = (blur_p - torch.floor(blur_p) - 0.5).abs() < 1e-3
+    check(bool((moved <= near_half).all()),
+          f"rounded blur differs only within 1e-3 of .5 "
+          f"({int(moved.sum())} pixels differ)")
+    # a canvas whose rows are not a multiple of the 32-row tile: the
+    # 320x240, 4-level pyramid [4, 240, 384], border 8
+    small = ExtractorConfig(n_features=300, max_keypoints=512, n_levels=4)
+    half = np.ascontiguousarray(frame0[::2, ::2])
+    det_s = eb.detect_pyramid(eb.to_device_image(half, dev),
+                              small, small.n_features)
+    got = fast_cuda.fast_nms_blur_stack(det_s.stack, det_s.dims, thr, 8)
+    ref = fast_cuda.fast_nms_blur_plain(det_s.stack, det_s.dims, thr, 8)
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"ragged canvas {list(det_s.stack.shape)}: score and blur "
+          f"bit-equal")
+    n_px = stack.numel()
+    ms1 = time_ms(lambda: fast_cuda.fast_nms_blur_stack(stack, dims, thr,
+                                                        border))
+    plain1 = time_ms(lambda: fast_cuda.fast_nms_blur_plain(stack, dims, thr,
+                                                           border))
+    bytes1 = 3 * n_px * 4 + dims.numel() * 4
+    # 16 differences, 2 x (64 window mins + 15 max), 2 compares, 8 NMS
+    # compares, 26 blur operations per pixel
+    ops1 = 210 * n_px
+    t_bytes, t_ops = bytes1 / HBM_BYTES_PER_S * 1e3, ops1 / FP32_OPS_PER_S * 1e3
+    kernels.append(dict(
+        name="fast_nms_blur", route="cuda",
+        source="orb_slam_tpu_torch/csrc/fast_nms_blur.cu",
+        replaces="orb_slam_tpu/ops/fast_pallas.py:146", launches=None,
+        max_abs_err=err1, ms=ms1, plain_ms=plain1,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None))
+    log(f"  kernel {ms1:.4f} ms, plain {plain1:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops {t_ops:.4f})")
+
+    # --- 4. kernel 2 -------------------------------------------------------
+    kp_xy = det.kp.xy.contiguous()
+    counts = det.valid.sum(dim=1).to(torch.int32)
+    cap_slots = kp_xy.shape[1]
+    log(f"# phase 4: orient_describe on [{L}, {cap_slots}] slots, counts "
+        f"{counts.tolist()}")
+    args2 = (stack, det.blurred, kp_xy, dims, counts)
+    m01_k, m10_k, desc_k = describe_cuda.orient_describe(*args2)
+    m01_p, m10_p, desc_p = describe_cuda.orient_describe_plain(*args2)
+    torch.cuda.synchronize()
+    check(torch.equal(m01_k, m01_p) and torch.equal(m10_k, m10_p),
+          "moments exactly equal to the plain version")
+    live = (torch.arange(cap_slots, device=dev)[None, :]
+            < counts[:, None]).cpu().numpy()
+    bits = bit_diffs(desc_k.cpu().numpy()[live], desc_p.cpu().numpy()[live])
+    check(bits.max(initial=0) <= 2, f"descriptors differ by <= 2 bits "
+          f"(max {bits.max(initial=0)})")
+    same = float((bits == 0).mean())
+    check(same >= 0.99, f"{same:.4f} of {live.sum()} descriptors identical")
+    dead = ~live
+    check(not desc_k.cpu().numpy()[dead].any()
+          and not m01_k.cpu().numpy()[dead].any()
+          and not m10_k.cpu().numpy()[dead].any(),
+          "exact zeros beyond counts")
+    err2 = float(torch.maximum((m01_k - m01_p).abs().max(),
+                               (m10_k - m10_p).abs().max()))
+    ms2 = time_ms(lambda: describe_cuda.orient_describe(*args2))
+    plain2 = time_ms(lambda: describe_cuda.orient_describe_plain(*args2))
+    raw_px, blur_px = touched_pixels(det, counts, m01_k, m10_k, patches)
+    n_live = int(counts.sum())
+    bytes2 = ((raw_px + blur_px) * 4 + kp_xy.numel() * 4 + dims.numel() * 4
+              + counts.numel() * 4 + (m01_k.numel() * 2 + desc_k.numel()) * 4)
+    # per live keypoint: 709 taps x (2 mul + 2 add), cos/sin, 512 rotated
+    # samples x (4 mul/add + round), 256 compares
+    ops2 = n_live * (709 * 4 + 6 + 512 * 5 + 256)
+    t_bytes, t_ops = bytes2 / HBM_BYTES_PER_S * 1e3, ops2 / FP32_OPS_PER_S * 1e3
+    kernels.append(dict(
+        name="orient_describe", route="cuda",
+        source="orb_slam_tpu_torch/csrc/orient_describe.cu",
+        replaces="orb_slam_tpu/ops/describe_pallas.py:211", launches=None,
+        max_abs_err=err2, ms=ms2, plain_ms=plain2,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None))
+    log(f"  {n_live} live keypoints; {raw_px} raw + {blur_px} blurred pixels "
+        f"touched; kernel {ms2:.4f} ms, plain {plain2:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.5f} ms")
+
+    # --- 5. main path ------------------------------------------------------
+    log(f"# phase 5: frame_step, {N_FRAMES} chained frames at 640x480")
+    cam, kw, arrays, frames = bench_world(dev, N_FRAMES)
+    log(f"  map: {int(arrays['mp_valid'].sum())} points from views "
+        f"{MAP_VIEWS}")
+
+    # warm the caching allocator and the kernels' libraries: one frame,
+    # not counted
+    state = st.state_from_numpy(arrays, device=dev)
+    fs.frame_step(frames[0], *state, cam, **kw, device=dev)
+    torch.cuda.synchronize()
+
+    state = st.state_from_numpy(arrays, device=dev)
+    torch.cuda.synchronize()
+    fast_cuda.fast_nms_blur_stack.launches = 0
+    describe_cuda.orient_describe.launches = 0
+    outs, step_ms = [], []
+    for img in frames:
+        t0 = time.perf_counter()
+        out = fs.frame_step(img, *state, cam, **kw, device=dev)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        state = st.chain(state, out)
+        outs.append(out)
+    launches = {"fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
+                "orient_describe": describe_cuda.orient_describe.launches}
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        check(k["launches"] == N_FRAMES,
+              f"{k['name']} launched {k['launches']} times in "
+              f"{N_FRAMES} frames")
+
+    blobs = np.stack([o.host_blob.cpu().numpy() for o in outs])
+    inliers = blobs[:, 15]
+    check(inliers.min() >= 30, f"every frame tracks: inliers "
+          f"min {inliers.min():.0f} median {np.median(inliers):.0f}")
+    errs = []
+    for k, b in enumerate(blobs):
+        Rg, tg = syn.pose_at(FIRST_TRACKED + k)
+        c = syn.camera_center(b[:9].reshape(3, 3), b[9:12])
+        errs.append(float(np.linalg.norm(c - syn.camera_center(Rg, tg))))
+    med_err = float(np.median(errs))
+    check(med_err <= POSE_BOUND_M, f"median camera-centre error "
+          f"{med_err:.4f} m <= {POSE_BOUND_M} m (max {max(errs):.4f} m)")
+    check(all(np.isfinite(blobs).all(axis=1)), "host blobs finite")
+
+    # the first 5 frames through the port on the CPU
+    state_c = st.state_from_numpy(arrays, device="cpu")
+    cam_c = make_camera(cam_cfg, device="cpu")
+    agree, pid_same = [], []
+    for k in range(5):
+        out_c = fs.frame_step(frames[k], *state_c, cam_c, **kw, device="cpu")
+        state_c = st.chain(state_c, out_c)
+        bc = out_c.host_blob.numpy()
+        agree.append(float(np.linalg.norm(
+            syn.camera_center(bc[:9].reshape(3, 3), bc[9:12])
+            - syn.camera_center(blobs[k, :9].reshape(3, 3),
+                                blobs[k, 9:12]))))
+        pid_same.append(float((bc[16:] == blobs[k, 16:]).mean()))
+    check(max(agree) <= CPU_POSE_AGREE_M, f"card vs CPU camera centres "
+          f"within {max(agree):.2e} m <= {CPU_POSE_AGREE_M} m")
+    check(min(pid_same) >= 0.95, f"card vs CPU pid_global equal on "
+          f">= {min(pid_same):.4f} of slots")
+    # host syncs, counted apart from the timed run: torch's sync debug mode
+    # warns at every operation that makes the host wait for the card
+    state = st.state_from_numpy(arrays, device=dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for img in frames[:SYNC_FRAMES]:
+            torch.cuda.set_sync_debug_mode("warn")
+            out = fs.frame_step(img, *state, cam, **kw, device=dev)
+            torch.cuda.set_sync_debug_mode("default")
+            state = st.chain(state, out)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"  frame_step median {np.median(step_ms):.3f} ms/frame "
+        f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}); host syncs "
+        f"{syncs / SYNC_FRAMES:.2f}/frame measured, {HOST_SYNCS_PER_FRAME} by "
+        f"design; f2f median {np.median(blobs[:, 12]):.0f}, local-map "
+        f"median {np.median(blobs[:, 13]):.0f}")
+
+    # --- 6. report ---------------------------------------------------------
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def touched_pixels(det, counts, m01, m10, patches):
+    """Distinct raw and blurred pixels that kernel 2 reads for this frame's
+    live keypoints (the bytes its bound counts)."""
+    import torch
+    from orb_slam_tpu_torch.ops import brief
+    stack = det.stack
+    L, H, W = stack.shape
+    dev = stack.device
+    cap = det.kp.xy.shape[1]
+    live = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+    lvl = torch.arange(L, device=dev)[:, None].expand(L, cap)[live]
+    xy = det.kp.xy[live]
+    lh = det.dims[lvl, 0].long()[:, None]
+    lw = det.dims[lvl, 1].long()[:, None]
+    r = patches.HALF_PATCH
+    d = torch.arange(-r, r + 1, device=dev)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    disc = (dx * dx + dy * dy <= r * r).reshape(-1)
+    cx = torch.round(xy[:, 0]).long()[:, None]
+    cy = torch.round(xy[:, 1]).long()[:, None]
+    ys = torch.minimum(torch.clamp(cy + dy.reshape(-1)[disc], min=0), lh - 1)
+    xs = torch.minimum(torch.clamp(cx + dx.reshape(-1)[disc], min=0), lw - 1)
+    raw = torch.unique((lvl[:, None] * H + ys) * W + xs).numel()
+    m01l, m10l = m01[live], m10[live]
+    hyp = torch.sqrt(m10l * m10l + m01l * m01l)
+    ca = torch.where(hyp > 0, m10l / hyp.clamp(min=1e-30),
+                     torch.ones_like(hyp))[:, None]
+    sa = torch.where(hyp > 0, m01l / hyp.clamp(min=1e-30),
+                     torch.zeros_like(hyp))[:, None]
+    pts = torch.from_numpy(brief._POINTS).to(dev)
+    sx = torch.round(pts[:, 0] * ca - pts[:, 1] * sa + xy[:, 0:1]).long()
+    sy = torch.round(pts[:, 0] * sa + pts[:, 1] * ca + xy[:, 1:2]).long()
+    sx = torch.minimum(torch.clamp(sx, min=0), lw - 1)
+    sy = torch.minimum(torch.clamp(sy, min=0), lh - 1)
+    blur = torch.unique((lvl[:, None] * H + sy) * W + sx).numel()
+    return raw, blur
+
+
+if __name__ == "__main__":
+    sys.exit(main())
