@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,8 +54,9 @@ def _lib_path(name: str) -> str:
 
 def build(names=SOURCES) -> dict:
     """Compile every named source that has no up-to-date library, one nvcc
-    per source, all started together.  Returns {name: library path}.
-    Raises with the compiler's output if any build fails."""
+    per source, all started together.  Returns {name: library path}; the
+    compiler's output is kept beside each library as <path>.log.  Raises
+    with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
@@ -75,6 +77,8 @@ def build(names=SOURCES) -> dict:
         else:
             if log.strip():
                 print(f"# nvcc {n}.cu:\n{log}", flush=True)
+            with open(out + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -89,6 +93,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build((name,))[name])
             _libs[name] = lib
         return lib
+
+
+def parse_ptxas(log: str) -> dict:
+    """The most registers any kernel uses and the spill bytes (stores plus
+    loads) summed over the kernels, from nvcc's -Xptxas=-v lines."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        log)
+    return {"registers": max(regs, default=None),
+            "spill_bytes": sum(int(a) + int(b) for a, b in spills)}
+
+
+def ptxas_info(name: str) -> dict:
+    """parse_ptxas of csrc/<name>.cu's build log (built first if needed)."""
+    with open(build((name,))[name] + ".log") as f:
+        return parse_ptxas(f.read())
 
 
 def check(err: int, what: str) -> None:

@@ -8,17 +8,15 @@ computeOrbDescriptor, :155-194).  Like the TPU kernel it steers with
 cos/sin = m10/|m|, m01/|m| (the same angle as atan2(m01, m10) up to
 rounding) and returns the moments, so the caller computes atan2 once.
 
-On the H100 the kernel is bound by the latency of its gathers (~5 KB per
-live keypoint, mostly L2 hits), not by bandwidth or arithmetic; see the
-source note in the .cu file for the design.
+On the H100 the kernel is bound by the latency of its gathers: one warp
+per slot in a single wave, three dependent memory round trips per warp; see
+the source note in the .cu file for the design.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from .. import _build
@@ -49,14 +47,16 @@ def _check_inputs(stack, blurred, kp_xy, dims, counts) -> None:
 
 @lru_cache(maxsize=None)
 def _consts(device: torch.device):
-    """(IC mask * dx, IC mask * dy, BRIEF p points, BRIEF q points)."""
+    """(IC mask * dx, IC mask * dy, BRIEF end points [2, 256, 2]: the p
+    point of every pair, then the q point, in pair order).  The kernel
+    reads the end points from this tensor."""
     mask = torch.from_numpy(patches._IC_MASK)
     d = torch.from_numpy(patches._IC_DX)
     w10 = mask * d[None, :]
     w01 = mask * d[:, None]
     pts = torch.from_numpy(brief._POINTS)
-    return (w10.to(device), w01.to(device), pts[0::2].to(device),
-            pts[1::2].to(device))
+    pattern = torch.stack([pts[0::2], pts[1::2]]).contiguous()
+    return w10.to(device), w01.to(device), pattern.to(device)
 
 
 def orient_describe_plain(stack, blurred, kp_xy, dims, counts):
@@ -64,7 +64,7 @@ def orient_describe_plain(stack, blurred, kp_xy, dims, counts):
     int32).  Slots at or past counts[l] are exact zeros."""
     L, H, W = stack.shape
     cap = kp_xy.shape[1]
-    w10, w01, p_pts, q_pts = _consts(stack.device)
+    w10, w01, pattern = _consts(stack.device)
     lh = dims[:, 0].long()[:, None, None]
     lw = dims[:, 1].long()[:, None, None]
     lvl = torch.arange(L, device=stack.device)[:, None, None]
@@ -98,7 +98,7 @@ def orient_describe_plain(stack, blurred, kp_xy, dims, counts):
         yi = torch.minimum(torch.clamp(sy, min=0), lh - 1)
         return blurred.reshape(-1)[(lvl * H + yi) * W + xi]
 
-    bits = (samples(p_pts) < samples(q_pts)).to(torch.int64)
+    bits = (samples(pattern[0]) < samples(pattern[1])).to(torch.int64)
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=stack.device),
         torch.arange(32, device=stack.device))
@@ -112,30 +112,14 @@ def orient_describe_plain(stack, blurred, kp_xy, dims, counts):
             torch.where(live[..., None], desc, torch.zeros_like(desc)))
 
 
-_pattern_lock = threading.Lock()
-
-
 @lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("orient_describe")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.orient_describe_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                           i, p]
+    lib.orient_describe_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                           i, i, p]
     lib.orient_describe_launch.restype = i
-    lib.orient_describe_set_pattern.argtypes = [p]
-    lib.orient_describe_set_pattern.restype = i
     return lib
-
-
-@lru_cache(maxsize=None)
-def _upload_pattern(device: torch.device) -> None:
-    """Copy the BRIEF end points into the kernel's __constant__ memory, once
-    per device."""
-    pts = np.ascontiguousarray(brief._POINTS, np.float32)   # [512, 2]
-    with torch.cuda.device(device):
-        _build.check(_lib().orient_describe_set_pattern(
-            pts.ctypes.data_as(ctypes.c_void_p)),
-            "orient_describe_set_pattern")
 
 
 def orient_describe(stack, blurred, kp_xy, dims, counts):
@@ -154,16 +138,16 @@ def orient_describe(stack, blurred, kp_xy, dims, counts):
         raise ValueError(f"unsupported device {stack.device}")
     L, H, W = stack.shape
     cap = kp_xy.shape[1]
-    with _pattern_lock:
-        _upload_pattern(stack.device)
+    pattern = _consts(stack.device)[2]
     m01 = torch.empty((L, cap), dtype=torch.float32, device=stack.device)
     m10 = torch.empty_like(m01)
     desc = torch.empty((L, cap, 8), dtype=torch.int32, device=stack.device)
     stream = torch.cuda.current_stream(stack.device).cuda_stream
     err = _lib().orient_describe_launch(
         stack.data_ptr(), blurred.data_ptr(), kp_xy.data_ptr(),
-        dims.data_ptr(), counts.data_ptr(), m01.data_ptr(), m10.data_ptr(),
-        desc.data_ptr(), L, H, W, cap, stream)
+        dims.data_ptr(), counts.data_ptr(), pattern.data_ptr(),
+        m01.data_ptr(), m10.data_ptr(), desc.data_ptr(), L, H, W, cap,
+        stream)
     _build.check(err, "orient_describe_launch")
     orient_describe.launches += 1
     return m01, m10, desc

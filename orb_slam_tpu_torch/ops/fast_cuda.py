@@ -7,10 +7,11 @@ fast_nms_blur_stack``.  The function computed is the JAX package's XLA
 path (``extractor_batched.py:102-119,146-147``): the blur reflects at the
 canvas edges (reflect-101) where the Pallas kernel clamps at tile seams.
 
-On the H100 the kernel is bound by device memory (read the stack once,
-write score and blur once: 29.5 MB, 8.8 us at [8, 480, 640]) and, about as
-much, by its ~210 float32 operations per pixel; see the source note in the
-.cu file for the design.
+On the H100 the kernel is bound by device memory (read the true pyramid
+once, write score and blur once: 23.5 MB, 7.0 us at [8, 480, 640]) and,
+about as much, by FAST's min/max chain (~4 us at one op per lane per
+clock); tiles that hold only padding are written as zeros without being
+staged.  See the source note in the .cu file for the design.
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ def fast_nms_blur_plain(stack: torch.Tensor, dims: torch.Tensor,
     score = nms3x3(fast_score(level, threshold)) zeroed outside
     [border, h-border) x [border, w-border) of each level's true (h, w);
     blur = gaussian_blur7 of each padded level (reflect-101 at the canvas
-    edges), not rounded."""
+    edges), not rounded.  The kernel computes the same function for a stack
+    that is zero outside each level's true (h, w), as the pyramid builder
+    makes it; this version takes any stack."""
     L, H, W = stack.shape
     score = nms3x3(fast_score(stack, float(threshold)))
     lh = dims[:, 0].long()[:, None, None]
@@ -71,8 +74,10 @@ def _lib():
 
 def fast_nms_blur_stack(stack: torch.Tensor, dims: torch.Tensor,
                         threshold: float, border: int):
-    """stack: [L, H, W] float32 padded pyramid; dims: [L, 2] int32 true
-    (h, w) per level.  Returns (score, blur), each [L, H, W] float32.
+    """stack: [L, H, W] float32 padded pyramid, zero outside each level's
+    true (h, w) (``extractor_batched._build_stack`` makes it so: the kernel
+    skips tiles that hold only that padding); dims: [L, 2] int32 true (h, w)
+    per level.  Returns (score, blur), each [L, H, W] float32.
 
     A CUDA tensor launches the kernel (``launches`` counts the launches); a
     CPU tensor takes the plain version."""

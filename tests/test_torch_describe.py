@@ -12,8 +12,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from orb_slam_tpu.ops.describe_pallas import orient_describe as j_pallas
-from orb_slam_tpu_torch.ops.describe_cuda import (orient_describe,
+from orb_slam_tpu_torch.ops import brief
+from orb_slam_tpu_torch.ops.describe_cuda import (_consts, orient_describe,
                                                   orient_describe_plain)
 from test_describe_pallas import make_case, xla_reference
 from torch_port_util import desc_bits, np_of, t_of
@@ -104,3 +106,36 @@ def test_wrapper_rejects_bad_inputs(rng):
     b = orient_describe_plain(stack, blurred, xy, dims, counts)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_pattern_tensor_is_brief_points_by_pair():
+    """The end points the kernel reads: [2, 256, 2], the p point of every
+    pair then its q point, in pair order, float32 and contiguous."""
+    pattern = _consts(torch.device("cpu"))[2]
+    assert pattern.dtype == torch.float32 and pattern.is_contiguous()
+    assert tuple(pattern.shape) == (2, 256, 2)
+    np.testing.assert_array_equal(np_of(pattern[0]), brief._POINTS[0::2])
+    np.testing.assert_array_equal(np_of(pattern[1]), brief._POINTS[1::2])
+    np.testing.assert_array_equal(
+        np_of(pattern).transpose(1, 0, 2).reshape(256, 4), brief._PATTERN)
+
+
+def test_chip_smoke_edge_case_matches_xla():
+    """The card's edge case of chip_smoke.py (no live slot, every slot live,
+    keypoints at level and canvas edges, a flat patch) through the port's
+    CPU path against the JAX XLA path, live slots only."""
+    stack, blurred, xy, dims, counts = chip_smoke.describe_edge_case("cpu")
+    got = orient_describe(stack, blurred, xy, dims, counts)
+    ref = xla_reference(*(jnp.asarray(np_of(a))
+                          for a in (stack, blurred, xy, dims)))
+    live = np.arange(xy.shape[1])[None, :] < np_of(counts)[:, None]
+    m01, m10, desc = map(np_of, got)
+    flat = live.ravel()          # the XLA path returns [L * cap] rows
+    np.testing.assert_allclose(m01[live], np_of(ref[0])[flat],
+                               rtol=3e-4, atol=2.0)
+    np.testing.assert_allclose(m10[live], np_of(ref[1])[flat],
+                               rtol=3e-4, atol=2.0)
+    bits = desc_bits(desc[live], np_of(ref[2])[flat])
+    assert bits.max() <= 2, bits.max()
+    assert m01[0, 0] == 0 and m10[0, 0] == 0
+    assert not desc[~live].any() and not m01[~live].any()

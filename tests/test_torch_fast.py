@@ -30,6 +30,7 @@ from orb_slam_tpu_torch.frontend.extractor import level_quotas, level_shapes
 from orb_slam_tpu_torch.ops import fast as tfast, patches as tpatches
 from orb_slam_tpu_torch.ops.fast_cuda import (fast_nms_blur_plain,
                                               fast_nms_blur_stack)
+import chip_smoke
 from smoke_world import SceneRenderer, pose_at
 from test_extractor import synthetic_corners_image
 from torch_port_util import np_of, t_of
@@ -71,6 +72,36 @@ def test_stack_builder(size, rng):
     frac = np.abs(pre[1:] - np.floor(pre[1:]) - 0.5)
     assert (frac[diff] < 1e-3).all(), "a non-.5 pixel rounds differently"
     assert diff.sum() <= 1e-4 * diff.size, int(diff.sum())
+
+
+@pytest.mark.parametrize("size", [(240, 320, 4), (480, 640, 8)])
+def test_stack_zero_outside_dims(size, rng):
+    """The precondition kernel 1 skips padding tiles on: each level of the
+    stack is exactly zero outside its true (h, w), even for a frame with no
+    zero pixel."""
+    h, w, L = size
+    img = rng.integers(1, 256, (h, w)).astype(np.float32)
+    cfg = ExtractorConfig(n_levels=L)
+    shapes = level_shapes(cfg, h, w)
+    st = teb._statics(shapes, level_quotas(cfg, 100), cfg.scale_factor,
+                      torch.device("cpu"))
+    stack = np_of(teb._build_stack(t_of(img), st))
+    for li, (lh, lw) in enumerate(shapes):
+        assert (stack[li, :lh, :lw] > 0).all()
+        assert not stack[li, lh:].any() and not stack[li, :, lw:].any()
+
+
+def test_tile_classes_main_path():
+    """Kernel 1's tiles at the main path's [8, 480, 640] canvas, as
+    chip_smoke.tile_classes sorts them (the kernel's rule): 1402 of 2400
+    tiles hold only padding."""
+    cfg = ExtractorConfig()
+    shapes = level_shapes(cfg, 480, 640)
+    assert chip_smoke.tile_classes(shapes, 480, 640) == (1402, 193, 805)
+    # the ragged 4-level canvas: W % 4 == 0, rows not a multiple of 32
+    small = level_shapes(ExtractorConfig(n_levels=4), 240, 320)
+    zero, edge, inner = chip_smoke.tile_classes(small, 240, 384)
+    assert zero + edge + inner == 4 * 8 * 12 and zero > 0 and inner > 0
 
 
 @functools.partial(jax.jit, static_argnums=(2, 3))
