@@ -22,7 +22,18 @@ Phases (any failure raises and the script exits non-zero):
               track, the median camera-centre error must stay under
               POSE_BOUND_M, and the first 5 frames must agree with the
               port's CPU path
-  6. report   a JSON line of per-kernel numbers (with each kernel's share
+  6. system   the bootstrap and end-to-end path: both kernels against
+              their plain versions at the init shape (2000 features, the
+              init budget), then System.process_image at the bench
+              configuration (synchronous mapping, frame_batch 1) on
+              N_SYSTEM_FRAMES frames of the bench sweep from frame 0: the
+              map must initialize within INIT_WITHIN frames, >= 95% of
+              the later frames track, >= 3 keyframes each run local
+              mapping with local BA, the Sim3-aligned ATE stays under
+              ATE_SPAN_FRACTION of the path span, the compiled graphops
+              run, and each kernel launches once per frame; prints the
+              {"system": {...}} line (stage times, host syncs)
+  7. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), then the last line {"ok": true, "device": {...}}
 
@@ -52,6 +63,13 @@ FIRST_TRACKED = 13
 WINDOW, POOL = 8192, 32768
 SEED = 11                    # the bench's texture seed
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 5   # kernel timing (time_ms)
+N_SYSTEM_FRAMES = 90         # phase 6: frames of the sweep from frame 0
+INIT_WITHIN = 40             # the map must initialize within these frames
+TRACKED_FRACTION = 0.95      # of the frames after initialization
+MIN_KEYFRAMES = 3            # inserted after initialization
+ATE_SPAN_FRACTION = 0.02     # Sim3-aligned ATE / path span (test_pipeline)
+MAPPING_STAGES = ("cullPoints", "triangulate", "fuse", "pointStats",
+                  "localBA", "cullKeyframes")
 FNB_TILE = (32, 32)          # kernel 1's tile, (width, height), as its .cu
 
 
@@ -429,13 +447,193 @@ def main():
         f"design; f2f median {np.median(blobs[:, 12]):.0f}, local-map "
         f"median {np.median(blobs[:, 13]):.0f}")
 
-    # --- 6. report ---------------------------------------------------------
+    # --- 6. system ---------------------------------------------------------
+    system = system_phase(dev, card, kernels)
+
+    # --- 7. report ---------------------------------------------------------
     print(card, flush=True)
+    print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def system_config():
+    """The slice's configuration: the bench's (bench.py:152-158) with
+    synchronous mapping and frame_batch 1, the default MapConfig."""
+    from orb_slam_tpu_torch.config import SystemConfig
+    cam_cfg, kw = bench_configs()
+    return SystemConfig(camera=cam_cfg, extractor=kw["ext_cfg"],
+                        matcher=kw["matcher_cfg"])
+
+
+def init_shape_kernels(dev, kernels):
+    """Both kernels against their plain versions on the first sweep frame's
+    pyramid at the init budget (init_features_mult x 1000 features), bit
+    for bit, and both timed there."""
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch.frontend import extractor_batched as eb
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda
+    cam_cfg, kw = bench_configs()
+    ext = kw["ext_cfg"]
+    n_init = ext.n_features * ext.init_features_mult
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cam_cfg.K)
+    det = eb.detect_pyramid(eb.to_device_image(
+        renderer.render(*syn.pose_at(0)), dev), ext, n_init)
+    thr, border = float(ext.fast_threshold_min), ext.edge_threshold
+    got = fast_cuda.fast_nms_blur_stack(det.stack, det.dims, thr, border)
+    ref = fast_cuda.fast_nms_blur_plain(det.stack, det.dims, thr, border)
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"init shape: kernel 1 score and blur bit-equal on "
+          f"{list(det.stack.shape)}")
+    counts = det.valid.sum(dim=1).to(torch.int32)
+    args = (det.stack, det.blurred, det.kp.xy.contiguous(), det.dims,
+            counts)
+    err = check_describe(describe_cuda.orient_describe(*args),
+                         describe_cuda.orient_describe_plain(*args), counts,
+                         f"init shape ({n_init} features, "
+                         f"{list(det.kp.xy.shape[:2])} slots)")
+    ms1 = time_ms(lambda: fast_cuda.fast_nms_blur_stack(det.stack, det.dims,
+                                                        thr, border))
+    ms2 = time_ms(lambda: describe_cuda.orient_describe(*args))
+    for k, ms, e in zip(kernels, (ms1, ms2), (0.0, err)):
+        k["init_shape_ms"] = ms
+        k["init_shape_max_abs_err"] = e
+    log(f"  init shape: kernel 1 {ms1:.5f} ms, kernel 2 {ms2:.5f} ms "
+        f"({int(counts.sum())} live slots, counts {counts.tolist()})")
+
+
+def system_phase(dev, card, kernels):
+    """Phase 6: System.process_image from frame 0 of the bench sweep on the
+    card.  Returns the {"system": ...} record; every check raises."""
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch import native
+    from orb_slam_tpu_torch.dataio import trajectory as traj
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda
+    from orb_slam_tpu_torch.pipeline.system import System
+    from orb_slam_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    log(f"# phase 6: system, {N_SYSTEM_FRAMES} frames of the sweep from "
+        f"frame 0")
+    init_shape_kernels(dev, kernels)
+    cfg = system_config()
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cfg.camera.K)
+    frames = [renderer.render(*syn.pose_at(i))
+              for i in range(N_SYSTEM_FRAMES)]
+    t0 = time.perf_counter()
+    system = System.create(cfg, device=dev)
+    check(native.backend() == "compiled",
+          f"compiled graphops in use (built in "
+          f"{time.perf_counter() - t0:.2f} s with the tracker)")
+
+    # stage clocks include the device work each stage queued; if the sync
+    # debug mode flags an explicit synchronize, those are taken back out
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("default")
+    probe = sum("synchroniz" in str(w.message) for w in caught)
+    GLOBAL_TIMER.reset()
+    GLOBAL_TIMER.sync = torch.cuda.synchronize
+    torch.cuda.synchronize()
+    fast_cuda.fast_nms_blur_stack.launches = 0
+    describe_cuda.orient_describe.launches = 0
+    logs, wall, syncs = [], [], []
+    for i, img in enumerate(frames):
+        n_stages = sum(GLOBAL_TIMER.counts.values())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t1 = time.perf_counter()
+            m = system.process_image(img, i / 30.0)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t1) * 1e3)
+        timer_syncs = probe * (sum(GLOBAL_TIMER.counts.values()) - n_stages)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught)
+                     - timer_syncs)
+        logs.append(m)
+    launches = {"fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
+                "orient_describe": describe_cuda.orient_describe.launches}
+    GLOBAL_TIMER.sync = None
+    for k in kernels:
+        k["system_launches"] = launches[k["name"]]
+        check(k["system_launches"] == N_SYSTEM_FRAMES,
+              f"{k['name']} launched {k['system_launches']} times in "
+              f"{N_SYSTEM_FRAMES} frames (one per extracting frame)")
+
+    events = [m.get("event") for m in logs]
+    log("  events: " + ", ".join(f"{i}:{e}" for i, e in enumerate(events)
+                                 if e))
+    check("map_initialized" in events[:INIT_WITHIN],
+          f"map initialized within {INIT_WITHIN} frames")
+    init = events.index("map_initialized")
+    tr = system.tracker
+    after = [r for r in tr.trajectory if r.frame_id > init]
+    frac = sum(r.tracked for r in after) / max(len(after), 1)
+    check(frac >= TRACKED_FRACTION, f"{frac:.4f} of the {len(after)} frames "
+          f"after initialization (frame {init}) tracked")
+    kf_frames = [i for i, e in enumerate(events) if e == "keyframe_inserted"]
+    n_ba = GLOBAL_TIMER.counts.get("mapping/localBA", 0)
+    check(len(kf_frames) >= MIN_KEYFRAMES
+          and all("culled_kfs" in logs[i] for i in kf_frames)
+          and n_ba == len(kf_frames),
+          f"{len(kf_frames)} keyframes inserted after initialization, each "
+          f"with local mapping and local BA ({n_ba} local BAs)")
+    rec = [r for r in tr.trajectory if r.tracked]
+    est = np.array([-r.R.T @ r.t for r in rec])
+    gt = np.array([syn.camera_center(*syn.pose_at(r.frame_id)) for r in rec])
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    ate = float(traj.ate_rmse(est, gt, with_scale=True))
+    check(np.isfinite(est).all() and ate < ATE_SPAN_FRACTION * span,
+          f"Sim3-aligned ATE {ate:.5f} m over a {span:.3f} m path "
+          f"({ate / span:.4f} < {ATE_SPAN_FRACTION})")
+    smap = tr.slam_map
+    check(np.array_equal(smap.state.kf_obs.cpu().numpy(), smap.obs_np)
+          and np.array_equal(smap.state.mp_valid.cpu().numpy(),
+                             smap.mp_valid_np),
+          "host mirrors equal to the device tables after the run")
+
+    working = [i for i in range(init + 1, N_SYSTEM_FRAMES)
+               if events[i] is None and logs[i]["state"] == "WORKING"]
+    kf_after = [i for i in kf_frames if i > init]
+
+    def stage_ms(name):
+        total = GLOBAL_TIMER.totals.get(f"mapping/{name}", 0.0)
+        return total * 1e3 / max(len(kf_after), 1)
+
+    w_ms = [wall[i] for i in working]
+    record = dict(
+        frames=N_SYSTEM_FRAMES, init_frame=init, init_ms=wall[init],
+        init_frames_ms=sum(wall[:init + 1]),
+        tracking_ms_per_frame=dict(
+            median=float(np.median(w_ms)), min=float(min(w_ms)),
+            max=float(max(w_ms)), frames=len(w_ms)),
+        keyframe_frame_ms=dict(
+            median=float(np.median([wall[i] for i in kf_after])),
+            max=float(max(wall[i] for i in kf_after))),
+        mapping_ms_per_keyframe={n: stage_ms(n) for n in MAPPING_STAGES},
+        host_syncs=dict(
+            per_working_frame=float(np.mean([syncs[i] for i in working])),
+            per_keyframe_frame=float(np.mean([syncs[i] for i in kf_after])),
+            init_frame=syncs[init],
+            before_init=int(sum(syncs[:init]))),
+        keyframes=int(tr.slam_map.kf_valid_np.sum()),
+        keyframes_inserted=len(kf_after), map_points=int(
+            tr.slam_map.mp_valid_np.sum()),
+        tracked_fraction_after_init=frac, ate_m=ate, path_span_m=span,
+        ate_span_fraction=ate / span, graphops=native.backend(),
+        launches=launches, synchronize_flagged=bool(probe), card=card)
+    log(f"  tracking {record['tracking_ms_per_frame']} ms/frame; keyframe "
+        f"frames {record['keyframe_frame_ms']} ms; mapping per keyframe "
+        f"{record['mapping_ms_per_keyframe']}; syncs "
+        f"{record['host_syncs']}")
+    return record
 
 
 def kernel_entry(name, replaces, err, ms, plain_ms, t_bytes, t_ops):

@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) and its host
+graph extension (``csrc/graphops.cpp``, built by ``g++``; see
+``build_host_extension``).
 
 Each source is compiled by ``nvcc`` for Hopper (sm_90a) into its own shared
 library with a plain C interface, and loaded with ``ctypes``.  Libraries go
@@ -20,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import sysconfig
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -93,6 +96,45 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build((name,))[name])
             _libs[name] = lib
         return lib
+
+
+HOST_SOURCES = ("graphops",)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def host_extension_path(name: str) -> str:
+    """Where csrc/<name>.cpp's Python extension module is built: a
+    directory of _build/ named by a hash of the source, the flags and the
+    interpreter's ABI, holding _<name><EXT_SUFFIX> (the module's init
+    function is PyInit__<name>)."""
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    with open(os.path.join(CSRC, name + ".cpp"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode()
+                                + suffix.encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}",
+                        f"_{name}{suffix}")
+
+
+def build_host_extension(name: str) -> str:
+    """Compile csrc/<name>.cpp (a plain CPython C extension, no device
+    code) with g++ unless an up-to-date build exists.  Returns the module
+    path; raises with the compiler's output if the build fails."""
+    out = host_extension_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", *GXX_FLAGS, f"-I{sysconfig.get_paths()['include']}",
+           os.path.join(CSRC, name + ".cpp"), "-o", tmp]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"g++ {name}.cpp could not run: {e}") from e
+    if r.returncode != 0:
+        raise RuntimeError(f"g++ {name}.cpp failed ({r.returncode}):\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def parse_ptxas(log: str) -> dict:

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,18 @@ def resolve_device(device=None) -> torch.device:
         # tensors report cuda:N; compare like with like
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To the card it goes through
+    pinned memory with a non-blocking copy, so the host does not wait for
+    the work already queued there (a pageable copy synchronizes)."""
+    t = torch.as_tensor(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone() if t.device == device else t.to(device)
 
 
 @contextlib.contextmanager

@@ -7,6 +7,7 @@
    (src/Frame.cc:136-197, src/ORBmatcher.cc:49-125).
  - tracking_megastep: both matchers with their fallbacks and the two
    motion-only pose LMs.
+ - init_window_match: SearchForInitialization (src/ORBmatcher.cc:598-713).
 
 The JAX package's two ``lax.cond`` fallbacks are Python branches here with
 the same triggers; each reads one count on the host, so a frame on the card
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import MatcherConfig, SolverConfig
@@ -191,9 +193,13 @@ def tracking_megastep(
             radius_wide=mcfg.radius_view_cos_wide)
 
     assoc2, visible = lmm(mcfg.localmap_th)
-    prev = torch.as_tensor(prev_localmap_matches, device=cur_xy.device)
-    floor = torch.clamp((0.6 * prev.to(torch.float32)).to(torch.int64),
-                        min=min_track_inliers * 6)
+    if isinstance(prev_localmap_matches, torch.Tensor):   # chained frames
+        floor = torch.clamp(
+            (0.6 * prev_localmap_matches.to(torch.float32)).to(torch.int64),
+            min=min_track_inliers * 6)
+    else:   # a host count: the same float32 product, without an upload
+        floor = max(int(np.float32(0.6) * np.float32(prev_localmap_matches)),
+                    min_track_inliers * 6)
     if bool(assoc2.valid.sum() < floor):                      # host sync 2
         assoc2, visible = lmm(mcfg.localmap_th_coarse)
 
@@ -206,3 +212,26 @@ def tracking_megastep(
         "n_inliers": r2.n_inliers,
     }
     return se3.orthonormalize(r2.R), r2.t, assoc2, r2.inliers, visible, stats
+
+
+def init_window_match(
+    xy1, desc1, level1, angle1, valid1,
+    xy2, desc2, level2, angle2, valid2,
+    radius: float = 100.0, max_dist: int = 50, ratio: float = 0.9,
+    histo_length: int = 30, check_orientation: bool = True,
+) -> m.Matches:
+    """SearchForInitialization (src/ORBmatcher.cc:598-713): window search at
+    level 0, mutual best, ratio test, rotation consistency.  Returns Matches
+    with rows = frame 1."""
+    dist = m.hamming_matrix(desc1, desc2)
+    mask = (m.window_mask(xy1, xy2, radius)
+            & m.valid_mask(valid1 & (level1 == 0), valid2 & (level2 == 0)))
+    mm = m.match_nn(m.apply_masks(dist, mask), max_dist=max_dist,
+                    ratio=ratio, mutual=True)
+    if check_orientation:
+        keep = m.rotation_consistency(angle1, angle2, mm,
+                                      histo_length=histo_length)
+        mm = m.Matches(idx=torch.where(keep, mm.idx,
+                                       torch.full_like(mm.idx, -1)),
+                       dist=mm.dist, valid=keep)
+    return m.resolve_duplicates(mm, xy2.shape[0])
