@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's per-frame tracking step on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: its two hand kernels, the
+per-frame tracking step, the synchronous System path and the bench
+configuration (async mapping, 16-frame batches).
 
     python3 chip_smoke.py
 
@@ -33,7 +35,21 @@ Phases (any failure raises and the script exits non-zero):
               ATE_SPAN_FRACTION of the path span, the compiled graphops
               run, and each kernel launches once per frame; prints the
               {"system": {...}} line (stage times, host syncs)
-  7. report   a JSON line of per-kernel numbers (with each kernel's share
+  7. bench    System.process_image at the bench configuration
+              (bench.py:152-177: async mapping, frame_batch 16, the default
+              MapConfig) on N_BENCH_FRAMES frames of the sweep from frame 0,
+              the mapping worker on its own CUDA stream: the map must
+              initialize within INIT_WITHIN frames, >= 95% of the later
+              frames track, every frame from initialization on has exactly
+              one trajectory record, >= 3 keyframes are submitted to the
+              worker and committed, at least one poll finds the worker busy,
+              the ATE stays under ATE_SPAN_FRACTION of the span, each kernel
+              launches once per frame and every host mirror equals its
+              table; prints the {"bench": {...}} line (fps, pose latency,
+              tracking ms per frame with the worker idle and busy, commit
+              and insertion ms, the worker's stage times, host syncs per
+              batch)
+  8. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), then the last line {"ok": true, "device": {...}}
 
@@ -70,6 +86,14 @@ MIN_KEYFRAMES = 3            # inserted after initialization
 ATE_SPAN_FRACTION = 0.02     # Sim3-aligned ATE / path span (test_pipeline)
 MAPPING_STAGES = ("cullPoints", "triangulate", "fuse", "pointStats",
                   "localBA", "cullKeyframes")
+# phase 7: one and a half periods of the sweep.  The first keyframe after
+# initialization enters the map two batches late (16-frame batches, each
+# retired when the next is dispatched), so the early frames track on the
+# two-view initial map and carry most of the error; the ATE over shorter
+# prefixes is in the record
+N_BENCH_FRAMES = 450
+ATE_PREFIXES = (90, 200, 300)
+BENCH_BATCH = 16             # bench.py's frame_batch
 FNB_TILE = (32, 32)          # kernel 1's tile, (width, height), as its .cu
 
 
@@ -450,9 +474,13 @@ def main():
     # --- 6. system ---------------------------------------------------------
     system = system_phase(dev, card, kernels)
 
-    # --- 7. report ---------------------------------------------------------
+    # --- 7. bench ----------------------------------------------------------
+    bench = bench_phase(dev, card, kernels, system)
+
+    # --- 8. report ---------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
+    print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -634,6 +662,276 @@ def system_phase(dev, card, kernels):
         f"{record['mapping_ms_per_keyframe']}; syncs "
         f"{record['host_syncs']}")
     return record
+
+
+def bench_config():
+    """The bench's configuration (bench.py:152-177 without its environment
+    knobs): async mapping, frame_batch 16, the default MapConfig."""
+    from orb_slam_tpu_torch.config import TrackerConfig
+    return system_config().replace(tracker=TrackerConfig(
+        async_mapping=True, frame_batch=BENCH_BATCH))
+
+
+class ThreadWarnings:
+    """Records the warnings raised in the calling thread (the mapping
+    worker's own go elsewhere): torch's sync debug mode warns at every
+    operation that makes the host wait for the card."""
+
+    def __init__(self):
+        import threading
+        self.ident = threading.get_ident()
+        self.count = 0
+
+    def __enter__(self):
+        import threading
+        self._saved = warnings.showwarning
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, *args, **kw):
+            if (threading.get_ident() == self.ident
+                    and "synchroniz" in str(message)):
+                self.count += 1
+        warnings.showwarning = show
+        return self
+
+    def __exit__(self, *exc):
+        warnings.showwarning = self._saved
+        self._ctx.__exit__(*exc)
+
+
+def bench_phase(dev, card, kernels, system_record):
+    """Phase 7: System.process_image at the bench configuration from frame 0
+    of the sweep, mapping on the worker.  Returns the {"bench": ...}
+    record; every check raises."""
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch.dataio import trajectory as traj
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda
+    from orb_slam_tpu_torch.pipeline.system import System
+    from orb_slam_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    log(f"# phase 7: bench, {N_BENCH_FRAMES} frames of the sweep from frame "
+        f"0, async mapping, frame_batch {BENCH_BATCH}")
+    cfg = bench_config()
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cfg.camera.K)
+    frames = [renderer.render(*syn.pose_at(i))
+              for i in range(N_BENCH_FRAMES)]
+    system = System.create(cfg, device=dev)
+    tr, am = system.tracker, system.tracker.async_mapper
+    check(am is not None and tr.cfg.tracker.frame_batch == BENCH_BATCH,
+          "System.create at the bench configuration (async mapping, "
+          f"frame_batch {BENCH_BATCH})")
+
+    # what the checks and the record read: job spans on the worker, polls
+    # that found it busy, commits, submissions, per-batch tracking times
+    jobs, busy_polls, commits, submits, batches = [], [0], [], [], []
+    logs, wall, submit_t, retire_t, n_stages = [], [], [], {}, {}
+    job, poll, submit = am._job, am.poll, am.submit
+    commit, dispatch = tr._commit_mapping, tr._dispatch_batch
+    backpressure, deferred = tr._backpressure, set()
+
+    def timed_job(*item):
+        t0 = time.perf_counter()
+        res = job(*item)
+        jobs.append((t0, time.perf_counter()))
+        return res
+
+    def counted_poll():
+        res = poll()
+        busy_polls[0] += res is None and am.busy
+        return res
+
+    def counted_submit(smap, kf):
+        submits.append((len(logs), kf))
+        return submit(smap, kf)
+
+    def timed_commit(res, metrics):
+        t0 = time.perf_counter()
+        commit(res, metrics)
+        torch.cuda.current_stream().synchronize()
+        commits.append((len(logs), res.kf, (time.perf_counter() - t0) * 1e3))
+
+    def timed_dispatch():
+        n, busy0 = len(tr._batch_buf), am.busy
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.current_stream().synchronize()
+        batches.append((len(logs), n, (time.perf_counter() - t0) * 1e3,
+                        busy0 or am.busy))
+
+    def noted_backpressure(n_inl):
+        if tr._adopting:        # a keyframe due while a commit drains
+            deferred.add(len(logs))
+        return backpressure(n_inl)
+
+    am._job, am.poll, am.submit = timed_job, counted_poll, counted_submit
+    tr._commit_mapping, tr._dispatch_batch = timed_commit, timed_dispatch
+    tr._backpressure = noted_backpressure
+
+    # each thread's stage clock waits for its own stream only
+    GLOBAL_TIMER.reset()
+    GLOBAL_TIMER.sync = lambda: torch.cuda.current_stream().synchronize()
+    with ThreadWarnings() as probe_w:
+        torch.cuda.set_sync_debug_mode("warn")
+        GLOBAL_TIMER.sync()
+        torch.cuda.set_sync_debug_mode("default")
+    probe = probe_w.count
+    torch.cuda.synchronize()
+    fast_cuda.fast_nms_blur_stack.launches = 0
+    describe_cuda.orient_describe.launches = 0
+    with ThreadWarnings() as sync_w:
+        torch.cuda.set_sync_debug_mode("warn")
+        t_run = time.perf_counter()
+        for i, img in enumerate(frames):
+            submit_t.append(time.perf_counter())
+            n0 = sum(GLOBAL_TIMER.counts.values())
+            s0 = sync_w.count
+            m = system.process_image(img, i / 30.0)
+            wall.append((time.perf_counter() - submit_t[-1]) * 1e3)
+            n_stages[i] = (sync_w.count - s0, sum(
+                GLOBAL_TIMER.counts.values()) - n0)
+            logs.append(m)
+            now = time.perf_counter()
+            for r in tr.trajectory:
+                retire_t.setdefault(r.frame_id, now)
+        t_drain = time.perf_counter()
+        tr._drain_pipe()
+        now = time.perf_counter()
+        for r in tr.trajectory:
+            retire_t.setdefault(r.frame_id, now)
+        drain_ms = (now - t_drain) * 1e3
+        run_s = now - t_run
+        torch.cuda.set_sync_debug_mode("default")
+    system.shutdown()                 # flush, commit, join the worker
+    GLOBAL_TIMER.sync = None
+    launches = {"fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
+                "orient_describe": describe_cuda.orient_describe.launches}
+    for k in kernels:
+        k["bench_launches"] = launches[k["name"]]
+        check(k["bench_launches"] == N_BENCH_FRAMES,
+              f"{k['name']} launched {k['bench_launches']} times in "
+              f"{N_BENCH_FRAMES} frames (once per frame, in frame_step_scan's "
+              f"rows once the map exists)")
+
+    events = [m.get("event") for m in logs]
+    log("  events: " + ", ".join(f"{i}:{e}" for i, e in enumerate(events)
+                                 if e))
+    check("map_initialized" in events[:INIT_WITHIN],
+          f"map initialized within {INIT_WITHIN} frames")
+    init = events.index("map_initialized")
+    ids = [r.frame_id for r in tr.trajectory if r.frame_id >= init]
+    check(ids == list(range(init, N_BENCH_FRAMES)),
+          f"one trajectory record per frame from initialization (frame "
+          f"{init}) on")
+    after = [r for r in tr.trajectory if r.frame_id > init]
+    frac = sum(r.tracked for r in after) / max(len(after), 1)
+    check(frac >= TRACKED_FRACTION, f"{frac:.4f} of the {len(after)} frames "
+          f"after initialization tracked")
+    committed = {kf for _, kf, _ in commits}
+    check(len(submits) >= MIN_KEYFRAMES
+          and {kf for _, kf in submits} <= committed,
+          f"{len(submits)} keyframes submitted to the worker, each "
+          f"committed ({len(commits)} commits)")
+    check(busy_polls[0] >= 1, f"{busy_polls[0]} polls found the worker busy "
+          f"(mapping ran beside tracking)")
+    rec = [r for r in tr.trajectory if r.tracked]
+    est = np.array([-r.R.T @ r.t for r in rec])
+    gt = np.array([syn.camera_center(*syn.pose_at(r.frame_id)) for r in rec])
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    ate = float(traj.ate_rmse(est, gt, with_scale=True))
+    check(np.isfinite(est).all() and ate < ATE_SPAN_FRACTION * span,
+          f"Sim3-aligned ATE {ate:.5f} m over a {span:.3f} m path "
+          f"({ate / span:.4f} < {ATE_SPAN_FRACTION})")
+    check_mirrors(tr.slam_map)
+    prefix_ate = {}
+    for n in ATE_PREFIXES:
+        sel = np.array([r.frame_id < n for r in rec])
+        prefix_ate[n] = float(traj.ate_rmse(est[sel], gt[sel], with_scale=True)
+                              / np.linalg.norm(gt[sel].max(0)
+                                               - gt[sel].min(0)))
+
+    # the record
+    lat = np.array([(retire_t[f] - submit_t[f]) * 1e3
+                    for f in range(init + 1, N_BENCH_FRAMES)
+                    if f in retire_t])
+    full = [(n, ms, busy) for _, n, ms, busy in batches if n == BENCH_BATCH]
+    per_frame = {k: [ms / n for n, ms, b in full if b == k]
+                 for k in (False, True)}
+    job_ms = [(b - a) * 1e3 for a, b in jobs]
+    busy_s = sum(b - a for a, b in jobs)
+    n_jobs = max(len(jobs), 1)
+    # host syncs per batch: those of the calls that dispatched a full batch
+    # (and retired the one before it) with no commit or insertion, less the
+    # stage clocks' explicit ones
+    other = {i for i, *_ in commits} | {i for i, _ in submits}
+    batch_calls = [i for i, n, _, _ in batches
+                   if n == BENCH_BATCH and i not in other and i in n_stages]
+    syncs = [n_stages[i][0] - probe * n_stages[i][1] for i in batch_calls]
+    record = dict(
+        frames=N_BENCH_FRAMES, frame_batch=BENCH_BATCH, init_frame=init,
+        fps_after_init=(N_BENCH_FRAMES - init - 1)
+        / ((sum(wall[init + 1:]) + drain_ms) / 1e3),
+        run_s=run_s,
+        pose_latency_ms=dict(p50=float(np.percentile(lat, 50)),
+                             p95=float(np.percentile(lat, 95)),
+                             max=float(lat.max())),
+        tracking_ms_per_frame=dict(
+            worker_idle=float(np.median(per_frame[False]))
+            if per_frame[False] else None,
+            worker_busy=float(np.median(per_frame[True]))
+            if per_frame[True] else None,
+            batches_idle=len(per_frame[False]),
+            batches_busy=len(per_frame[True]),
+            sync_path_phase6=system_record["tracking_ms_per_frame"]["median"]),
+        commit_ms=dict(median=float(np.median([c for *_, c in commits])),
+                       max=float(max(c for *_, c in commits)),
+                       commits=len(commits)),
+        insert_keyframe_ms=GLOBAL_TIMER.summary().get(
+            "tracking/insertKeyframe"),
+        submit_mapping_ms=GLOBAL_TIMER.summary().get(
+            "tracking/submitMapping"),
+        keyframes_submitted=len(submits),
+        # commits whose drain met a due keyframe: it waited for the commit
+        # (the JAX tracker inserts it into the map the commit replaces)
+        commits_meeting_a_due_keyframe=len(deferred),
+        worker_job_ms=dict(median=float(np.median(job_ms)),
+                           max=float(max(job_ms))),
+        worker_busy_share=busy_s / run_s,
+        mapping_ms_per_job={
+            n: GLOBAL_TIMER.totals.get(f"mapping/{n}", 0.0) * 1e3 / n_jobs
+            for n in MAPPING_STAGES},
+        mapping_ms_per_keyframe_sync_phase6=system_record[
+            "mapping_ms_per_keyframe"],
+        busy_polls=busy_polls[0],
+        host_syncs_per_batch=float(np.mean(syncs)) if syncs else None,
+        tracked_fraction_after_init=frac, ate_m=ate, path_span_m=span,
+        ate_span_fraction=ate / span,
+        ate_span_fraction_first_frames=prefix_ate, keyframes=int(
+            tr.slam_map.kf_valid_np.sum()),
+        map_points=int(tr.slam_map.mp_valid_np.sum()),
+        launches=launches, loop_closer=None, card=card)
+    log(f"  fps {record['fps_after_init']:.3f}; latency "
+        f"{record['pose_latency_ms']}; tracking ms/frame "
+        f"{record['tracking_ms_per_frame']}; commits {record['commit_ms']}; "
+        f"worker busy {record['worker_busy_share']:.3f} of the run; "
+        f"mapping per job {record['mapping_ms_per_job']}; syncs per batch "
+        f"{record['host_syncs_per_batch']}")
+    return record
+
+
+def check_mirrors(smap):
+    """Every host mirror bitwise equal to its table (the landmark counts'
+    mirrors are insertion-time snapshots by design)."""
+    st = smap.state
+    same = (np.array_equal(st.kf_obs.cpu().numpy(), smap.obs_np)
+            and np.array_equal(st.kf_valid.cpu().numpy(), smap.kf_valid_np)
+            and np.array_equal(st.mp_valid.cpu().numpy(), smap.mp_valid_np))
+    for name, arr in smap.host.items():
+        if name not in ("mp_found", "mp_visible"):
+            same &= np.array_equal(getattr(st, name).cpu().numpy(), arr)
+    check(same, "every host mirror equal to its table after the run")
 
 
 def kernel_entry(name, replaces, err, ms, plain_ms, t_bytes, t_ops):

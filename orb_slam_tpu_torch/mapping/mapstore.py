@@ -204,10 +204,15 @@ class SlamMap:
     # ------------------------------------------------------------------
 
     def add_keyframe(self, R, t, xy, level, angle, desc, kp_valid, obs,
-                     frame_id: int, timestamp: float,
-                     parent: int = -1) -> int:
+                     frame_id: int, timestamp: float, parent: int = -1,
+                     batch_index: Optional[int] = None) -> int:
         """Insert a keyframe row; the row's host mirrors and the landmark
-        counters' snapshots come back in one packed fetch."""
+        counters' snapshots come back in one packed fetch.  With
+        batch_index set, the feature arguments are stacked frame_step_scan
+        outputs and their row batch_index is inserted."""
+        if batch_index is not None:
+            xy, level, angle, desc, kp_valid = (
+                x[batch_index] for x in (xy, level, angle, desc, kp_valid))
         if self.n_kf >= self.cfg.max_keyframes:
             self.compact_keyframes()
         if self.n_kf >= self.cfg.max_keyframes:

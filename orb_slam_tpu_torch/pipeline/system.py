@@ -25,7 +25,8 @@ from .tracker import Tracker
 
 @dataclass
 class System:
-    """End-to-end SLAM system: extractor + tracker + synchronous mapper."""
+    """End-to-end SLAM system: extractor + tracker + local mapper (on the
+    tracking thread, or on a worker with ``async_mapping``)."""
 
     cfg: SystemConfig
     tracker: Tracker = None
@@ -51,7 +52,8 @@ class System:
         traj_mod.save_tum(path, self.tracker.keyframe_trajectory())
 
     def shutdown(self):
-        """Retire in-flight frames (System::Shutdown)."""
+        """Retire in-flight frames, commit in-flight mapping work and join
+        the mapping worker (System::Shutdown)."""
         self.tracker.shutdown()
 
     def evaluate_ate(self, gt: np.ndarray) -> Optional[float]:

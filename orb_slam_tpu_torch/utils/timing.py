@@ -9,6 +9,7 @@ statistics.  Enable printing with ORB_SLAM_TPU_TIME=1 or `StageTimer(echo=True)`
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager, nullcontext
@@ -27,6 +28,8 @@ class StageTimer:
         # its "group/name" key (e.g. torch.profiler.record_function, so a
         # profile attributes device time to stages); None = no range
         self.range = None
+        # per-thread replacements of `sync` (set_thread_sync)
+        self._local = threading.local()
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
 
@@ -40,12 +43,18 @@ class StageTimer:
                 yield
         finally:
             if self.sync is not None:
-                self.sync()
+                getattr(self._local, "sync", self.sync)()
             dt = time.perf_counter() - t0
             self.totals[key] += dt
             self.counts[key] += 1
             if self.echo:
                 print(f"[time] {group} run {name} {time.time():.6f} {dt:.6f}")
+
+    def set_thread_sync(self, fn) -> None:
+        """In the calling thread, end each stage with fn() in place of
+        `sync` (when `sync` is set): the mapping worker waits for its own
+        stream only, not for tracking's work on the rest of the card."""
+        self._local.sync = fn
 
     def reset(self) -> None:
         self.totals.clear()

@@ -14,7 +14,8 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "smoke_world.py"),
              os.path.join(ROOT, "scripts", "torch_frame_profile.py"),
-             os.path.join(ROOT, "scripts", "torch_system_profile.py")]
+             os.path.join(ROOT, "scripts", "torch_system_profile.py"),
+             os.path.join(ROOT, "scripts", "torch_bench.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -45,6 +46,8 @@ def test_import_leaves_jax_out():
     code = ("import sys; before = set(sys.modules); "
             "import orb_slam_tpu_torch.pipeline.frame_step, "
             "orb_slam_tpu_torch.pipeline.system, "
+            "orb_slam_tpu_torch.pipeline.async_mapper, "
+            "orb_slam_tpu_torch.entry, "
             "orb_slam_tpu_torch.native, orb_slam_tpu_torch.state, "
             "smoke_world, chip_smoke; "
             "bad = sorted(m for m in set(sys.modules) - before "

@@ -23,10 +23,12 @@ Tolerances, and why:
   - every host mirror of the port's map bitwise equal to its table.
 
 More cases: the port alone, unpinned, at 320x240 (it initializes, tracks
-to the end and inserts >= 3 keyframes); the staged Tracker.process path on
+to the end and inserts >= 3 keyframes); the port alone, batched with async
+mapping, through a partial flush and through a blackout inside a batch;
+frame_batch's ValueError and clamp; the staged Tracker.process path on
 feature-level input; one local-mapping pass of both packages on the JAX
 run's map carried over by SlamMap.from_numpy; build_frame and the
-trajectory tools; the modes this slice does not port raise.
+trajectory tools; the modes not ported yet raise.
 """
 import dataclasses
 
@@ -196,16 +198,110 @@ def test_port_alone_unpinned_tracks_to_end():
 
 
 def test_unported_modes_raise():
-    for tcfg in (tc.TrackerConfig(async_mapping=True),
-                 tc.TrackerConfig(frame_batch=2)):
-        with pytest.raises(NotImplementedError):
-            System.create(tc.SystemConfig(tracker=tcfg), device="cpu")
+    from orb_slam_tpu_torch.solvers import bundle_adjust as tba
     with pytest.raises(NotImplementedError):
         System.create(tc.SystemConfig(solver=tc.SolverConfig(
             ba_layout="grid")), device="cpu")
+    edges = tba.BAEdges(cam_idx=torch.zeros(1, dtype=torch.int64),
+                        pt_idx=torch.zeros(1, dtype=torch.int64),
+                        uv=torch.zeros(1, 2), inv_sigma2=torch.ones(1),
+                        valid=torch.ones(1, dtype=torch.bool))
+    with pytest.raises(NotImplementedError):
+        tba.bundle_adjust(torch.eye(3)[None], torch.zeros(1, 3),
+                          torch.ones(1, 3), torch.ones(1, dtype=torch.bool),
+                          edges, None, solver="cg")
     if not torch.cuda.is_available():    # the default device is the card
         with pytest.raises(RuntimeError):
             System.create(tc.SystemConfig())
+
+
+def _port_async(n_frames, step, black=(), **tracker_kw):
+    """The port alone, batched and async (frame_batch 4, service interval
+    pinned to 4 polls), on the 320x240 sweep; frames in `black` are
+    blacked out.  Returns (system, logs) before shutdown."""
+    cfg = _cfg(tc, 320, 240, 500, 512)
+    cfg = cfg.replace(tracker=dataclasses.replace(
+        cfg.tracker, async_mapping=True, frame_batch=4,
+        mapper_service_polls=4, **tracker_kw))
+    frames = _frames(cfg, n_frames, step)
+    for i in black:
+        frames[i] = np.zeros_like(frames[i])
+    system = System.create(cfg, device="cpu")
+    return system, _run(system, frames)
+
+
+def _records_after_init(tracker, logs, n_frames):
+    """The trajectory holds the initial pair's reference frame and then
+    exactly one record per frame from initialization on."""
+    init_ref = [l["frame_id"] for l in logs
+                if l.get("event") == "init_ref_set"][-1]
+    init = [l["frame_id"] for l in logs
+            if l.get("event") == "map_initialized"][-1]
+    ids = [r.frame_id for r in tracker.trajectory]
+    assert ids == [init_ref] + list(range(init, n_frames)), ids
+    return {r.frame_id: r for r in tracker.trajectory}
+
+
+def test_port_batched_partial_flush():
+    """15 frames of batched async tracking end with a partial batch in the
+    buffer; shutdown flushes it: every frame after the initial pair has one
+    tracked record, and the map keeps its mirrors."""
+    system, logs = _port_async(15, 2)
+    tracker = system.tracker
+    assert 0 < len(tracker._batch_buf) < 4
+    system.shutdown()
+    recs = _records_after_init(tracker, logs, 15)
+    assert all(r.tracked for r in recs.values())
+    assert tracker.state == TrackState.WORKING and tracker.slam_map.n_kf >= 3
+    assert not tracker._batch_buf and not tracker._pipe
+    _assert_mirrors(tracker.slam_map)
+
+
+def test_port_blackout_inside_a_batch(monkeypatch):
+    """Two black frames inside a batch: the first loses tracking (reset
+    disabled, so the state goes LOST), the batch's later rows go through
+    the staged state machine, and every later frame is recorded untracked
+    (relocalisation is not ported); no frame lacks a record."""
+    from orb_slam_tpu_torch.pipeline.tracker import Tracker
+    aborted, orig = [], Tracker._abort_batch_rows
+
+    def abort_rows(self, out, recs, start, n_real):
+        aborted.extend(r["frame_id"] for r in recs[start:n_real])
+        return orig(self, out, recs, start, n_real)
+
+    monkeypatch.setattr(Tracker, "_abort_batch_rows", abort_rows)
+    system, logs = _port_async(13, 2, black=(9, 10),
+                               reset_if_lost_before_kfs=0)
+    system.shutdown()
+    tracker = system.tracker
+    recs = _records_after_init(tracker, logs, 13)
+    assert [l.get("event") for l in logs].count("tracking_lost") == 1
+    assert logs[9].get("event") == "tracking_lost"
+    assert tracker.state == TrackState.LOST
+    assert 10 in aborted        # a later row of the lost frame's batch
+    assert all(recs[f].tracked for f in recs if f < 9)
+    assert not any(recs[f].tracked for f in recs if f >= 9)
+
+
+def test_frame_batch_needs_async_and_is_clamped():
+    """As the JAX tracker (tests/test_frame_batch.py:166-190): frame_batch
+    > 1 without async mapping raises ValueError; a batch beyond the
+    keyframe cadence max_frames_between_kf is clamped with a warning; an
+    in-bound one passes untouched."""
+    import warnings
+    from orb_slam_tpu_torch.pipeline.tracker import Tracker
+    with pytest.raises(ValueError, match="async_mapping"):
+        Tracker.create(tc.SystemConfig(tracker=tc.TrackerConfig(
+            frame_batch=2)), device="cpu")
+    for fb, want in ((24, 18), (16, 16)):
+        cfg = tc.SystemConfig(tracker=tc.TrackerConfig(
+            async_mapping=True, frame_batch=fb))
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            tr = Tracker.create(cfg, device="cpu")
+        assert tr.cfg.tracker.frame_batch == want
+        assert any("frame_batch" in str(x.message) for x in w) == (fb != want)
+        tr.shutdown()
 
 
 def _port_feats(f):
