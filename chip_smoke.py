@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: its two hand kernels, the
-per-frame tracking step, the synchronous System path and the bench
-configuration (async mapping, 16-frame batches).
+per-frame tracking step, the synchronous System path, the bench
+configuration (async mapping, 16-frame batches) and relocalisation.
 
     python3 chip_smoke.py
 
@@ -49,9 +49,23 @@ Phases (any failure raises and the script exits non-zero):
               tracking ms per frame with the worker idle and busy, commit
               and insertion ms, the worker's stage times, host syncs per
               batch)
-  8. report   a JSON line of per-kernel numbers (with each kernel's share
+  8. reloc    System.process_image at the bench configuration on
+              N_RELOC_FRAMES frames of the sweep from frame 0, with
+              BLACKOUT_LEN frames from BLACKOUT_START blacked out (zero
+              images) once >= MIN_KF_BEFORE_BLACKOUT keyframes exist: one
+              tracking_lost and no system_reset, BoW relocalisation within
+              RELOC_WITHIN frames of the blackout's end, >= 95% of the
+              frames after it tracked, one record per frame, the ATE of the
+              frames after it under ATE_SPAN_FRACTION of their span, >= 1
+              keyframe added to the place-recognition database on the
+              worker and one database row per live keyframe, each kernel
+              launched once per frame, host mirrors equal to their tables;
+              then the winning attempt's PnP RANSAC on the card against the
+              CPU with the same samples; prints the {"reloc": {...}} line
+  9. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
-              build), then the last line {"ok": true, "device": {...}}
+              build), the card's name and power limit, then the last line
+              {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event means over replays of a captured CUDA graph
 (time_ms), after a warm-up; the plain versions run the same arithmetic as PyTorch ops and are no yardstick
@@ -94,6 +108,14 @@ MAPPING_STAGES = ("cullPoints", "triangulate", "fuse", "pointStats",
 N_BENCH_FRAMES = 450
 ATE_PREFIXES = (90, 200, 300)
 BENCH_BATCH = 16             # bench.py's frame_batch
+# phase 8: a blackout in the second half of the run, after the map has
+# grown past reset_if_lost_before_kfs (5), so the LOST path is taken
+N_RELOC_FRAMES = 260
+BLACKOUT_START, BLACKOUT_LEN = 160, 8
+MIN_KF_BEFORE_BLACKOUT = 6
+RELOC_WITHIN = 15            # frames after the blackout's end
+PNP_INLIER_MASK_AGREE = 0.01  # card vs CPU: share of rows that may differ
+PNP_POSE_AGREE = 1e-4        # refined pose, rotation Frobenius / rel. t
 FNB_TILE = (32, 32)          # kernel 1's tile, (width, height), as its .cu
 
 
@@ -457,19 +479,19 @@ def main():
     # warns at every operation that makes the host wait for the card
     state = st.state_from_numpy(arrays, device=dev)
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
+    with ThreadWarnings() as sync_w:
         for img in frames[:SYNC_FRAMES]:
             torch.cuda.set_sync_debug_mode("warn")
             out = fs.frame_step(img, *state, cam, **kw, device=dev)
             torch.cuda.set_sync_debug_mode("default")
             state = st.chain(state, out)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs, sites = sync_w.count, sync_w.sites
     log(f"  frame_step median {np.median(step_ms):.3f} ms/frame "
         f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}); host syncs "
         f"{syncs / SYNC_FRAMES:.2f}/frame measured, {HOST_SYNCS_PER_FRAME} by "
-        f"design; f2f median {np.median(blobs[:, 12]):.0f}, local-map "
-        f"median {np.median(blobs[:, 13]):.0f}")
+        f"design, by site over {SYNC_FRAMES} frames {sites}; f2f median "
+        f"{np.median(blobs[:, 12]):.0f}, local-map median "
+        f"{np.median(blobs[:, 13]):.0f}")
 
     # --- 6. system ---------------------------------------------------------
     system = system_phase(dev, card, kernels)
@@ -477,10 +499,14 @@ def main():
     # --- 7. bench ----------------------------------------------------------
     bench = bench_phase(dev, card, kernels, system)
 
-    # --- 8. report ---------------------------------------------------------
+    # --- 8. reloc ----------------------------------------------------------
+    reloc = reloc_phase(dev, card, kernels)
+
+    # --- 9. report ---------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
+    print(json.dumps({"reloc": reloc}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -672,15 +698,48 @@ def bench_config():
         async_mapping=True, frame_batch=BENCH_BATCH))
 
 
+class MainThreadClock:
+    """The stage timer's wait for the current stream, counting its calls:
+    the timer calls it from threads without a sync of their own (the
+    mapping worker has one), so `calls` counts this thread's stage ends."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self):
+        import torch
+        self.calls += 1
+        torch.cuda.current_stream().synchronize()
+
+
 class ThreadWarnings:
-    """Records the warnings raised in the calling thread (the mapping
-    worker's own go elsewhere): torch's sync debug mode warns at every
-    operation that makes the host wait for the card."""
+    """Counts the warnings of torch's sync debug mode raised in the calling
+    thread (the mapping worker's own go elsewhere): it warns at every
+    operation that makes the host wait for the card.  `sites` counts them
+    by where they were issued: the innermost line of this repository on the
+    stack, and the innermost line when that lies outside it."""
 
     def __init__(self):
         import threading
         self.ident = threading.get_ident()
         self.count = 0
+        self.sites = {}
+
+    def _note_site(self):
+        import os
+        import traceback
+        root = os.path.dirname(os.path.abspath(__file__)) + os.sep
+        stack = traceback.extract_stack()
+        while stack and (stack[-1].name in ("_note_site", "show")
+                         or stack[-1].filename.endswith("warnings.py")):
+            stack.pop()                         # this hook's own frames
+        ours = [f for f in stack if f.filename.startswith(root)]
+        key = (f"{os.path.relpath(ours[-1].filename, root)}:{ours[-1].lineno}"
+               if ours else "?")
+        if stack and not stack[-1].filename.startswith(root):
+            key += (f" via {os.path.basename(stack[-1].filename)}:"
+                    f"{stack[-1].lineno}")
+        self.sites[key] = self.sites.get(key, 0) + 1
 
     def __enter__(self):
         import threading
@@ -693,6 +752,7 @@ class ThreadWarnings:
             if (threading.get_ident() == self.ident
                     and "synchroniz" in str(message)):
                 self.count += 1
+                self._note_site()
         warnings.showwarning = show
         return self
 
@@ -770,9 +830,12 @@ def bench_phase(dev, card, kernels, system_record):
     tr._commit_mapping, tr._dispatch_batch = timed_commit, timed_dispatch
     tr._backpressure = noted_backpressure
 
-    # each thread's stage clock waits for its own stream only
+    # each thread's stage clock waits for its own stream only: the worker's
+    # through its own sync (set_thread_sync), this thread's through
+    # GLOBAL_TIMER.sync, counted here
     GLOBAL_TIMER.reset()
-    GLOBAL_TIMER.sync = lambda: torch.cuda.current_stream().synchronize()
+    clock = MainThreadClock()
+    GLOBAL_TIMER.sync = clock
     with ThreadWarnings() as probe_w:
         torch.cuda.set_sync_debug_mode("warn")
         GLOBAL_TIMER.sync()
@@ -786,12 +849,12 @@ def bench_phase(dev, card, kernels, system_record):
         t_run = time.perf_counter()
         for i, img in enumerate(frames):
             submit_t.append(time.perf_counter())
-            n0 = sum(GLOBAL_TIMER.counts.values())
+            n0, c0 = sum(GLOBAL_TIMER.counts.values()), clock.calls
             s0 = sync_w.count
             m = system.process_image(img, i / 30.0)
             wall.append((time.perf_counter() - submit_t[-1]) * 1e3)
-            n_stages[i] = (sync_w.count - s0, sum(
-                GLOBAL_TIMER.counts.values()) - n0)
+            n_stages[i] = (sync_w.count - s0, clock.calls - c0,
+                           sum(GLOBAL_TIMER.counts.values()) - n0)
             logs.append(m)
             now = time.perf_counter()
             for r in tr.trajectory:
@@ -864,11 +927,15 @@ def bench_phase(dev, card, kernels, system_record):
     n_jobs = max(len(jobs), 1)
     # host syncs per batch: those of the calls that dispatched a full batch
     # (and retired the one before it) with no commit or insertion, less the
-    # stage clocks' explicit ones
+    # explicit waits of this thread's stage clocks.  (Subtracting the stage
+    # ends of every thread, the worker's included, whose waits this thread
+    # never sees, undercounts: that figure is kept beside the count.)
     other = {i for i, *_ in commits} | {i for i, _ in submits}
     batch_calls = [i for i, n, _, _ in batches
                    if n == BENCH_BATCH and i not in other and i in n_stages]
     syncs = [n_stages[i][0] - probe * n_stages[i][1] for i in batch_calls]
+    syncs_pr4 = [n_stages[i][0] - probe * n_stages[i][2]
+                 for i in batch_calls]
     record = dict(
         frames=N_BENCH_FRAMES, frame_batch=BENCH_BATCH, init_frame=init,
         fps_after_init=(N_BENCH_FRAMES - init - 1)
@@ -906,12 +973,15 @@ def bench_phase(dev, card, kernels, system_record):
             "mapping_ms_per_keyframe"],
         busy_polls=busy_polls[0],
         host_syncs_per_batch=float(np.mean(syncs)) if syncs else None,
+        host_syncs_per_batch_all_threads_stages=float(np.mean(syncs_pr4))
+        if syncs_pr4 else None,
         tracked_fraction_after_init=frac, ate_m=ate, path_span_m=span,
         ate_span_fraction=ate / span,
         ate_span_fraction_first_frames=prefix_ate, keyframes=int(
             tr.slam_map.kf_valid_np.sum()),
         map_points=int(tr.slam_map.mp_valid_np.sum()),
-        launches=launches, loop_closer=None, card=card)
+        launches=launches, place_recognition=True, loop_closing=None,
+        loop_unchecked=unchecked_loops(logs), card=card)
     log(f"  fps {record['fps_after_init']:.3f}; latency "
         f"{record['pose_latency_ms']}; tracking ms/frame "
         f"{record['tracking_ms_per_frame']}; commits {record['commit_ms']}; "
@@ -919,6 +989,292 @@ def bench_phase(dev, card, kernels, system_record):
         f"mapping per job {record['mapping_ms_per_job']}; syncs per batch "
         f"{record['host_syncs_per_batch']}")
     return record
+
+
+RELOC_STAGES = ("relocBow", "relocCandidates", "relocMatch", "relocPnP",
+                "relocPoseLM", "relocLocalMap")
+
+
+def reloc_phase(dev, card, kernels):
+    """Phase 8: a blackout in the bench configuration's run; the LOST frames
+    relocalize through the BoW database and EPnP RANSAC.  Returns the
+    {"reloc": ...} record; every check raises."""
+    import threading
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch.dataio import trajectory as traj
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda
+    from orb_slam_tpu_torch.pipeline.system import System
+    from orb_slam_tpu_torch.solvers import pnp
+    from orb_slam_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    black = range(BLACKOUT_START, BLACKOUT_START + BLACKOUT_LEN)
+    log(f"# phase 8: reloc, {N_RELOC_FRAMES} frames of the sweep from frame "
+        f"0 at the bench configuration, frames {black.start}-{black.stop - 1}"
+        f" black")
+    cfg = bench_config()
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cfg.camera.K)
+    frames = [renderer.render(*syn.pose_at(i)) for i in range(N_RELOC_FRAMES)]
+    for i in black:
+        frames[i] = np.zeros_like(frames[i])
+    system = System.create(cfg, device=dev)
+    tr, am = system.tracker, system.tracker.async_mapper
+    lc = tr.loop_closer
+    check(lc is not None and am is not None and am.loop_closer is lc,
+          "Tracker.create built a LoopCloser, shared with the mapping worker")
+
+    # what the checks and the record read: each relocalisation call (time,
+    # host syncs, the worker flush inside it, stage times), the winning
+    # attempt's PnP inputs, keyframes added to the database by the worker,
+    # extraction time of frames that arrive LOST
+    main = threading.get_ident()
+    attempts, pnp_calls, won, worker_adds = [], [], [], [0]
+    flush_ms, extract_ms = [0.0], []
+    relocalize, candidate = tr._relocalize, tr._reloc_candidate
+    add_kf, flush, extract = lc.add_keyframe, am.flush, tr.extract
+    pnp_ransac = pnp.pnp_ransac
+
+    def counted_add(smap, kf):
+        worker_adds[0] += threading.get_ident() != main
+        return add_kf(smap, kf)
+
+    def timed_flush(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return flush(*a, **kw)
+        finally:
+            flush_ms[0] += (time.perf_counter() - t0) * 1e3
+
+    def timed_extract(image):
+        lost = tr.state.name == "LOST"
+        t0 = time.perf_counter()
+        out = extract(image)
+        if lost:
+            torch.cuda.current_stream().synchronize()
+            extract_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def recorded_pnp(*a, **kw):
+        res = pnp_ransac(*a, **kw)
+        pnp_calls.append((a, kw, res))
+        return res
+
+    def noted_candidate(fd, timestamp, metrics, cand):
+        n0 = len(pnp_calls)
+        ok = candidate(fd, timestamp, metrics, cand)
+        if ok and not won:
+            won.append((pnp_calls[-1] if len(pnp_calls) > n0 else None,
+                        dict(metrics)))
+        return ok
+
+    def timed_relocalize(fd, timestamp, metrics):
+        totals0 = {n: GLOBAL_TIMER.totals.get(f"tracking/{n}", 0.0)
+                   for n in RELOC_STAGES}
+        n0, s0, f0 = clock.calls, sync_w.count, flush_ms[0]
+        t0 = time.perf_counter()
+        relocalize(fd, timestamp, metrics)
+        s1, n_st = sync_w.count, clock.calls - n0
+        torch.cuda.current_stream().synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        attempts.append(dict(
+            frame=tr.frame_id, event=metrics.get("event"), ms=ms,
+            flush_ms=flush_ms[0] - f0,
+            syncs=s1 - s0 - probe * n_st,
+            stages={n: (GLOBAL_TIMER.totals.get(f"tracking/{n}", 0.0)
+                        - totals0[n]) * 1e3 for n in RELOC_STAGES}))
+
+    lc.add_keyframe, am.flush, tr.extract = counted_add, timed_flush, \
+        timed_extract
+    tr._relocalize, tr._reloc_candidate = timed_relocalize, noted_candidate
+    pnp.pnp_ransac = recorded_pnp
+
+    GLOBAL_TIMER.reset()
+    clock = MainThreadClock()
+    GLOBAL_TIMER.sync = clock
+    with ThreadWarnings() as probe_w:
+        torch.cuda.set_sync_debug_mode("warn")
+        GLOBAL_TIMER.sync()
+        torch.cuda.set_sync_debug_mode("default")
+    probe = probe_w.count
+    torch.cuda.synchronize()
+    fast_cuda.fast_nms_blur_stack.launches = 0
+    describe_cuda.orient_describe.launches = 0
+    logs, kf_at_blackout = [], None
+    try:
+        with ThreadWarnings() as sync_w:
+            torch.cuda.set_sync_debug_mode("warn")
+            t_run = time.perf_counter()
+            for i, img in enumerate(frames):
+                if i == black.start:
+                    kf_at_blackout = int(tr.slam_map.kf_valid_np.sum())
+                logs.append(system.process_image(img, i / 30.0))
+            tr._drain_pipe()
+            run_s = time.perf_counter() - t_run
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        pnp.pnp_ransac = pnp_ransac
+    system.shutdown()                 # flush, commit, join the worker
+    GLOBAL_TIMER.sync = None
+    launches = {"fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
+                "orient_describe": describe_cuda.orient_describe.launches}
+    for k in kernels:
+        k["reloc_launches"] = launches[k["name"]]
+        check(k["reloc_launches"] == N_RELOC_FRAMES,
+              f"{k['name']} launched {k['reloc_launches']} times in "
+              f"{N_RELOC_FRAMES} frames (once per frame, LOST frames "
+              f"included)")
+
+    events = [m.get("event") for m in logs]
+    log("  events: " + ", ".join(f"{i}:{e}" for i, e in enumerate(events)
+                                 if e and e != "lost"))
+    check(kf_at_blackout is not None
+          and kf_at_blackout >= MIN_KF_BEFORE_BLACKOUT,
+          f"{kf_at_blackout} live keyframes when the blackout starts "
+          f"(>= {MIN_KF_BEFORE_BLACKOUT})")
+    check(events.count("tracking_lost") == 1
+          and "system_reset" not in events,
+          f"one tracking_lost (frame {events.index('tracking_lost')}) and no "
+          f"system_reset")
+    lost_at = events.index("tracking_lost")
+    check("relocalized" in events, "a LOST frame relocalized")
+    rec_at = events.index("relocalized")
+    delay = rec_at - black.stop
+    check(black.start <= lost_at < black.stop and 0 <= delay <= RELOC_WITHIN,
+          f"relocalized at frame {rec_at}, {delay} frames after the "
+          f"blackout's end (<= {RELOC_WITHIN})")
+    init = events.index("map_initialized")
+    ids = [r.frame_id for r in tr.trajectory if r.frame_id >= init]
+    check(ids == list(range(init, N_RELOC_FRAMES)),
+          f"one trajectory record per frame from initialization (frame "
+          f"{init}) on")
+    after = [r for r in tr.trajectory if r.frame_id > rec_at]
+    frac = sum(r.tracked for r in after) / max(len(after), 1)
+    check(frac >= TRACKED_FRACTION, f"{frac:.4f} of the {len(after)} frames "
+          f"after relocalisation tracked")
+    rec = [r for r in tr.trajectory if r.tracked and r.frame_id >= rec_at]
+    est = np.array([-r.R.T @ r.t for r in rec])
+    gt = np.array([syn.camera_center(*syn.pose_at(r.frame_id)) for r in rec])
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    ate = float(traj.ate_rmse(est, gt, with_scale=True))
+    check(np.isfinite(est).all() and ate < ATE_SPAN_FRACTION * span,
+          f"Sim3-aligned ATE after relocalisation {ate:.5f} m over a "
+          f"{span:.3f} m path ({ate / span:.4f} < {ATE_SPAN_FRACTION})")
+    live = int(tr.slam_map.kf_valid_np.sum())
+    check(worker_adds[0] >= 1 and len(lc.db) == live,
+          f"{worker_adds[0]} keyframes added to the database on the worker; "
+          f"{len(lc.db)} database rows for {live} live keyframes")
+    check_mirrors(tr.slam_map)
+
+    pnp_check = pnp_card_vs_cpu(won[0][0], tr.cam, cfg.solver)
+    win = won[0][1]
+    lost = attempts
+    n_lost = max(len(lost), 1)
+    stage_ms = {n: sum(a["stages"][n] for a in lost) / n_lost
+                for n in RELOC_STAGES}
+    won_attempt = [a for a in attempts if a["event"] == "relocalized"][0]
+    n_lc = GLOBAL_TIMER.counts.get("mapping/loopClosing", 0)
+    record = dict(
+        frames=N_RELOC_FRAMES, blackout=[black.start, black.stop],
+        keyframes_at_blackout=kf_at_blackout, lost_frame=lost_at,
+        recovered_frame=rec_at, recovery_delay_frames=delay,
+        attempted_frames=[a["frame"] for a in attempts],
+        winning_attempt=dict(
+            reloc_kf=win.get("reloc_kf"),
+            candidates=win.get("reloc_candidates"),
+            matches=win.get("reloc_matches"),
+            pnp_inliers=int(won[0][0][2].n_inliers),
+            final_inliers=win.get("reloc_inliers"),
+            ms=won_attempt["ms"], flush_ms=won_attempt["flush_ms"],
+            stages_ms=won_attempt["stages"], host_syncs=won_attempt["syncs"]),
+        ms_per_lost_frame=dict(
+            median=float(np.median([a["ms"] for a in lost])),
+            mean=float(np.mean([a["ms"] for a in lost])),
+            worker_flush=float(np.mean([a["flush_ms"] for a in lost])),
+            **stage_ms,
+            extract_when_lost=float(np.median(extract_ms))
+            if extract_ms else None,
+            frames=len(lost)),
+        host_syncs_per_lost_frame=float(np.mean([a["syncs"] for a in lost])),
+        worker_loop_closing_ms_per_keyframe=GLOBAL_TIMER.totals.get(
+            "mapping/loopClosing", 0.0) * 1e3 / max(n_lc, 1),
+        worker_place_recognition_passes=n_lc,
+        worker_keyframes_added=worker_adds[0], database_rows=len(lc.db),
+        loop_unchecked=unchecked_loops(logs),
+        tracked_fraction_after_reloc=frac, ate_after_reloc_m=ate,
+        path_span_after_reloc_m=span, ate_span_fraction=ate / span,
+        run_s=run_s, pnp_card_vs_cpu=pnp_check, launches=launches,
+        card=card)
+    log(f"  lost at {lost_at}, relocalized at {rec_at} (+{delay}); "
+        f"per LOST frame {record['ms_per_lost_frame']}; syncs "
+        f"{record['host_syncs_per_lost_frame']:.2f}; winning attempt "
+        f"{record['winning_attempt']}; worker loopClosing "
+        f"{record['worker_loop_closing_ms_per_keyframe']:.3f} ms/keyframe")
+    return record
+
+
+def pnp_card_vs_cpu(call, cam, solver_cfg):
+    """The winning attempt's pnp_ransac on the card and on the CPU with the
+    same inputs and samples: the same ok and inlier count, inlier masks
+    apart on <= PNP_INLIER_MASK_AGREE of the rows, and the pose refined by
+    the pose LM over each device's inliers within PNP_POSE_AGREE.  The raw
+    RANSAC poses are reported, not gated: a 4-point EPnP hypothesis is the
+    solution of a 4-dimensional numerical null space whose basis the two
+    eigh implementations pick differently."""
+    import torch
+    from orb_slam_tpu_torch.geometry.camera import CameraParams
+    from orb_slam_tpu_torch.solvers import pnp, pose_opt
+    args, kw, _ = call
+    cpu = [a.cpu() for a in args]
+    t0 = time.perf_counter()
+    card_res = pnp.pnp_ransac(*args, **kw)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_res = pnp.pnp_ransac(*cpu, **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    X, uv, inv_s2, valid, _ = args
+    cam_c = CameraParams(*[x.cpu() if isinstance(x, torch.Tensor) else x
+                           for x in cam])
+    r_card = pose_opt.optimize_pose(card_res.R, card_res.t, X, uv, inv_s2,
+                                    valid & card_res.inliers, cam, solver_cfg)
+    r_cpu = pose_opt.optimize_pose(cpu_res.R, cpu_res.t, *cpu[:3],
+                                   cpu[3] & cpu_res.inliers, cam_c,
+                                   solver_cfg)
+
+    def apart(Ra, ta, Rb, tb):
+        Ra, ta = Ra.cpu().double(), ta.cpu().double()
+        Rb, tb = Rb.cpu().double(), tb.cpu().double()
+        return (float(torch.linalg.matrix_norm(Ra - Rb)),
+                float(torch.linalg.vector_norm(ta - tb)
+                      / torch.linalg.vector_norm(tb)))
+
+    mask_diff = float((card_res.inliers.cpu() != cpu_res.inliers).float()
+                      .mean())
+    raw = apart(card_res.R, card_res.t, cpu_res.R, cpu_res.t)
+    refined = apart(r_card.R, r_card.t, r_cpu.R, r_cpu.t)
+    check(bool(card_res.ok) == bool(cpu_res.ok)
+          and int(card_res.n_inliers) == int(cpu_res.n_inliers),
+          f"pnp_ransac card vs CPU: same ok and {int(cpu_res.n_inliers)} "
+          f"inliers")
+    check(mask_diff <= PNP_INLIER_MASK_AGREE,
+          f"pnp_ransac card vs CPU: inlier masks apart on {mask_diff:.4f} of "
+          f"the rows (<= {PNP_INLIER_MASK_AGREE})")
+    check(max(refined) <= PNP_POSE_AGREE,
+          f"pnp_ransac card vs CPU: refined poses within {refined[0]:.2e} "
+          f"(rotation) and {refined[1]:.2e} (relative translation) <= "
+          f"{PNP_POSE_AGREE}; raw RANSAC poses {raw[0]:.2e} / {raw[1]:.2e}")
+    return dict(n_inliers=int(card_res.n_inliers), mask_diff=mask_diff,
+                raw_pose_apart=raw, refined_pose_apart=refined,
+                n_samples=int(kw["samples"].shape[0]),
+                min_set=int(kw["samples"].shape[1]),
+                card_ms=card_ms, cpu_ms=cpu_ms)
+
+
+def unchecked_loops(logs):
+    """Keyframes whose loop detection returned consistent candidates that
+    the port does not check yet (loop closing stops at detection)."""
+    return sum(bool(m.get("mapping", {}).get("loop_unchecked"))
+               + bool(m.get("loop_unchecked")) for m in logs)
 
 
 def check_mirrors(smap):

@@ -8,7 +8,8 @@ point a user calls — frames in, a map and a trajectory out.
     system.save_trajectory("KeyFrameTrajectory.txt")
 
 The CLI and the dataset readers wait for data in the repository;
-checkpoint save/resume waits for relocalisation.
+checkpoint save/resume (which relocalizes into a loaded map) comes with a
+later slice.
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ from .tracker import Tracker
 
 @dataclass
 class System:
-    """End-to-end SLAM system: extractor + tracker + local mapper (on the
-    tracking thread, or on a worker with ``async_mapping``)."""
+    """End-to-end SLAM system: extractor + tracker (with BoW
+    relocalisation) + local mapper and place recognition (on the tracking
+    thread, or on a worker with ``async_mapping``)."""
 
     cfg: SystemConfig
     tracker: Tracker = None

@@ -20,10 +20,16 @@ host blob and the map's host mirrors), so a WORKING frame reads the card
 only at frame_step's two fallback decisions and at the blob fetch (one
 fetch per batch).
 
-Not ported: relocalisation (a LOST frame is recorded untracked, as the JAX
-tracker does without a loop closer), loop closing and checkpoint resume;
-the JAX package's ``prewarm_commit_variants`` (there is nothing to
-compile) and ``_start_host_prefetch`` (a workaround for its device link).
+A LOST frame runs BoW relocalisation (src/Tracking.cc:867-1036): database
+candidates, descriptor matching against their landmarks, batched EPnP
+RANSAC, pose refinement and local-map re-acquisition.  Every new keyframe
+goes to the place-recognition database (``loop_closer.py``), on the worker
+with async mapping.
+
+Not ported: the geometric check and correction of loop candidates (loop
+closing stops at detection) and checkpoint resume; the JAX package's
+``prewarm_commit_variants`` (there is nothing to compile) and
+``_start_host_prefetch`` (a workaround for its device link).
 A partial flush of the batch buffer dispatches only its frames: the JAX
 tracker pads it to frame_batch to keep one compiled program.
 """
@@ -44,7 +50,10 @@ from ..frontend.extractor import FrameFeatures
 from ..frontend.extractor_batched import extract_batched
 from ..geometry import camera as cam_mod, se3
 from ..mapping import mapstore
-from ..solvers import initializer
+from ..ops import match as match_ops
+from ..place import database as db_mod
+from ..place import vocabulary as voc_mod
+from ..solvers import initializer, pnp, pose_opt
 from ..utils.timing import GLOBAL_TIMER as _timer
 from .. import native
 from . import frame as frame_mod
@@ -52,6 +61,7 @@ from . import frame_step as fs
 from . import track_kernels as tk
 from .async_mapper import AsyncMapper, MappingResult
 from .local_mapper import LocalMapper
+from .loop_closer import LoopCloser
 
 
 def _orthonormalize_np(R: np.ndarray) -> np.ndarray:
@@ -127,6 +137,7 @@ class Tracker:
     local_mapper: LocalMapper
     device: torch.device
     async_mapper: Optional[AsyncMapper] = None
+    loop_closer: Optional[LoopCloser] = None
 
     state: TrackState = TrackState.NOT_INITIALIZED
     frame_id: int = 0
@@ -174,11 +185,14 @@ class Tracker:
     init_timestamp: float = 0.0
 
     trajectory: List[FrameRecord] = field(default_factory=list)
-    # RANSAC samples of two-view initialization: drawn from this CPU
-    # generator (seeded by cfg.seed), unless init_sampler is set —
-    # init_sampler(valid [N] bool tensor) -> [S, sample_size] indices
+    # RANSAC samples of two-view initialization and of relocalisation's
+    # PnP: drawn from this CPU generator (seeded by cfg.seed), unless a
+    # sampler is set — init_sampler(valid [N] bool tensor) ->
+    # [S, sample_size] indices; pnp_sampler(valid [N] bool numpy,
+    # n_samples, min_set) -> [n_samples, min_set] indices
     generator: Optional[torch.Generator] = None
     init_sampler: Optional[Callable] = None
+    pnp_sampler: Optional[Callable] = None
 
     @staticmethod
     def create(cfg: SystemConfig, device=None) -> "Tracker":
@@ -215,13 +229,16 @@ class Tracker:
         smap = mapstore.SlamMap.create(cfg.map, cfg.extractor.max_keypoints,
                                        device=dev)
         lm = LocalMapper(cfg=cfg, cam=cam)
-        am = (AsyncMapper(lm, service_polls=cfg.tracker.mapper_service_polls,
+        lc = LoopCloser(cfg=cfg, cam=cam)
+        am = (AsyncMapper(lm, lc,
+                          service_polls=cfg.tracker.mapper_service_polls,
                           device=dev)
               if cfg.tracker.async_mapping else None)
         gen = torch.Generator(device="cpu")
         gen.manual_seed(cfg.seed)
         return Tracker(cfg=cfg, cam=cam, slam_map=smap, local_mapper=lm,
-                       device=dev, async_mapper=am, generator=gen)
+                       device=dev, async_mapper=am, loop_closer=lc,
+                       generator=gen)
 
     # ------------------------------------------------------------------
     def process(self, feats: FrameFeatures, timestamp: float) -> dict:
@@ -897,6 +914,16 @@ class Tracker:
 
         self.local_mapper.refresh_point_stats(smap)
 
+        # place recognition: the vocabulary (trained on the init frames'
+        # descriptors only when no vocabulary file is configured or
+        # shipped) and the two bootstrap keyframes
+        lc = self.loop_closer
+        if lc is not None:
+            lc.ensure_vocabulary(lambda: np.concatenate([
+                _np(f.feats.desc)[_np(f.feats.valid)] for f in (f0, f1)]))
+            lc.add_keyframe(smap, kf0)
+            lc.add_keyframe(smap, kf1)
+
         self.last_R = smap.host["kf_R"][kf1].copy()
         self.last_t = smap.host["kf_t"][kf1].copy()
         self.last_frame = f1
@@ -947,6 +974,8 @@ class Tracker:
         self._force_kf = False
         self._batch_buf = []
         self._last_stacked = None
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
 
     # ------------------------------------------------------------------
     # staged WORKING path (pre-extracted features)
@@ -1041,19 +1070,192 @@ class Tracker:
             self._create_keyframe(fd, timestamp, pid_global, metrics)
 
     def _relocalize(self, fd, timestamp, metrics):
-        """Without place recognition (it comes with the relocalisation
-        slice) a LOST frame is recorded untracked at the last pose, as the
-        JAX tracker does without a loop closer.  In-flight mapping work is
-        committed first, as there."""
+        """BoW relocalisation (src/Tracking.cc:867-1036): candidate
+        keyframes from the database, descriptor matching against their
+        landmarks, batched EPnP RANSAC, pose refinement over its inliers,
+        local-map re-acquisition at the recovered pose.  In-flight mapping
+        work is committed first: it writes the database."""
         metrics["event"] = "lost"
         if self.async_mapper is not None:
             res = self.async_mapper.flush()
             if res is not None:
                 self._commit_mapping(res, metrics)
+        lc = self.loop_closer
+        smap = self.slam_map
+        if lc is None or lc.voc is None or smap.n_kf == 0:
+            self._record_lost(timestamp)
+            return
+        with _timer.stage("tracking", "relocBow"):
+            # the frame's descriptors and validity in one fetch
+            packed = torch.cat([fd.feats.desc, fd.feats.valid[:, None].to(
+                torch.int32)], dim=1).cpu().numpy()
+            bow = voc_mod.transform_np(lc.voc, packed[:, :8],
+                                       packed[:, 8] != 0)
+        with _timer.stage("tracking", "relocCandidates"):
+            covis = lc._covis_np(smap).astype(np.float64)
+            lc.ensure_capacity(smap.cfg.max_keyframes)
+            cands = db_mod.detect_candidates(
+                lc.db, bow, np.zeros(len(lc.db.has_row), bool), covis,
+                min_score=None)
+            # the three most recent live keyframes join a weak BoW
+            # shortlist: a loss usually happens near the last tracked
+            # position (the JAX tracker's choice; ForceRelocalisation,
+            # src/Tracking.cc:867-884, relocalizes against that window)
+            live = np.where(smap.kf_valid_np)[0]
+            by_recency = live[np.argsort(
+                -np.asarray(smap.kf_frame_id)[live])]
+            known = set(int(c) for c in cands)
+            recent = [k for k in by_recency if k not in known][:3]
+            cands = np.concatenate([np.asarray(cands, np.int64),
+                                    np.asarray(recent, np.int64)])
+        metrics["reloc_candidates"] = len(cands)
+
+        for cand in cands[:8]:
+            if self._reloc_candidate(fd, timestamp, metrics, int(cand)):
+                return
+        # every attempted frame leaves a record, at the last known pose
+        self._record_lost(timestamp)
+
+    def _record_lost(self, timestamp):
+        """An untracked record at the last known pose (a live consumer sees
+        an explicit untracked pose, not a gap)."""
         if self.last_R is not None:
             self.trajectory.append(FrameRecord(
                 self.frame_id, timestamp, np.asarray(self.last_R),
                 np.asarray(self.last_t), False))
+
+    def _pnp_samples(self, pvalid: np.ndarray, n_samples: int,
+                     min_set: int) -> torch.Tensor:
+        if self.pnp_sampler is not None:
+            return torch.as_tensor(np.asarray(
+                self.pnp_sampler(pvalid, n_samples, min_set), np.int64))
+        return pnp.draw_samples(self.generator, pvalid, n_samples, min_set)
+
+    def _reloc_candidate(self, fd, timestamp, metrics, cand: int) -> bool:
+        """One relocalisation attempt against keyframe `cand`; True when it
+        recovered the frame (state, pose, associations and record set)."""
+        smap = self.slam_map
+        st = smap.state
+        dev = self.device
+        mcfg, scfg, tcfg = self.cfg.matcher, self.cfg.solver, self.cfg.tracker
+        obs = smap.obs_np[cand]
+        if (obs >= 0).sum() < 15:
+            return False
+        with _timer.stage("tracking", "relocMatch"):
+            # frame keypoints (rows) against the candidate's keypoints
+            dist = match_ops.hamming_matrix(fd.feats.desc, st.kf_desc[cand])
+            mask = match_ops.valid_mask(fd.feats.valid, upload(obs >= 0, dev))
+            mm = match_ops.match_nn(match_ops.apply_masks(dist, mask),
+                                    max_dist=mcfg.th_low, ratio=0.75)
+            if mcfg.check_orientation:
+                # SearchByBoW's rotation histogram (the reference's reloc
+                # matcher is ORBmatcher(0.75, true))
+                keep = match_ops.rotation_consistency(
+                    fd.feats.angle, st.kf_angle[cand], mm,
+                    histo_length=mcfg.histo_length)
+                mm = match_ops.Matches(
+                    idx=torch.where(keep, mm.idx, torch.full_like(mm.idx, -1)),
+                    dist=mm.dist, valid=keep)
+            mm = match_ops.resolve_duplicates(mm, obs.shape[0])
+            h = torch.stack([mm.idx, mm.valid.to(torch.int64)]).cpu().numpy()
+        m_idx, m_valid = h[0], h[1] != 0
+        n_matches = int(m_valid.sum())
+        metrics["reloc_matches"] = n_matches
+        if n_matches < 15:
+            return False
+
+        pid = obs[np.clip(m_idx, 0, None)]
+        pvalid = m_valid & (pid >= 0)
+        X = st.mp_pos[upload(np.clip(pid, 0, None).astype(np.int64), dev)]
+        pvalid_d = upload(pvalid, dev)
+        # the RANSAC budget: the JAX tracker's formula (tracker.py:
+        # 1368-1378) floors the analytic iteration count at pnp_max_iters
+        # and caps it there, so it always resolves to pnp_max_iters rounded
+        # up to a power of two (512 at the default 300; ROADMAP Queue 3,
+        # known issue 4)
+        n_samp = 1 << (scfg.pnp_max_iters - 1).bit_length()
+        with _timer.stage("tracking", "relocPnP"):
+            res = pnp.pnp_ransac(
+                X, fd.xy_und, fd.inv_sigma2, pvalid_d,
+                upload(np.asarray(self.cfg.camera.K, np.float32), dev),
+                n_samples=n_samp, min_set=scfg.pnp_min_set,
+                chi2_th=scfg.pnp_th2, min_inliers=scfg.pnp_min_inliers,
+                samples=self._pnp_samples(pvalid, n_samp, scfg.pnp_min_set))
+            ok_inl = torch.cat([res.ok[None], res.inliers]).cpu().numpy()
+        if not ok_inl[0]:
+            return False
+        inl_pnp = ok_inl[1:]
+        with _timer.stage("tracking", "relocPoseLM"):
+            # refined over the RANSAC inliers only (Tracking.cc:958-980
+            # nulls the other map points before PoseOptimization)
+            r1 = pose_opt.optimize_pose(
+                res.R, res.t, X, fd.xy_und, fd.inv_sigma2,
+                pvalid_d & res.inliers, self.cam, scfg)
+            n1 = int(r1.n_inliers)
+        if n1 < scfg.pnp_min_inliers:
+            return False
+
+        with _timer.stage("tracking", "relocLocalMap"):
+            # local-map re-acquisition at the recovered pose, voted by the
+            # PnP inlier landmarks (the stale pre-loss associations would
+            # pick the wrong keyframe neighbourhood)
+            mp = self._local_points(seed_pids=pid[inl_pnp & pvalid])
+
+            def match_round(R, t, th, max_dist):
+                assoc, _ = tk.match_local_map(
+                    fd.xy_und, fd.feats.desc, fd.feats.level,
+                    fd.feats.angle, fd.feats.valid,
+                    mp["pos"], mp["desc"], mp["normal"], mp["min_d"],
+                    mp["max_d"], mp["valid"], R, t, self.cam,
+                    th=float(th), max_dist=max_dist,
+                    ratio=mcfg.nn_ratio_localmap,
+                    n_levels=self.cfg.extractor.n_levels,
+                    radius_tight=mcfg.radius_view_cos_tight,
+                    radius_wide=mcfg.radius_view_cos_wide)
+                r = pose_opt.optimize_pose(
+                    R, t, assoc.pos, fd.xy_und, fd.inv_sigma2,
+                    assoc.valid, self.cam, scfg)
+                return assoc, r, int(r.n_inliers)
+
+            # escalation rounds (Tracking.cc:984-1021): a wide projection
+            # search first; in the 30..50 band, a narrow search at the
+            # refined pose with a tighter descriptor gate decides
+            need = tcfg.min_localmap_inliers_reloc
+            assoc2, r2, n_inl = match_round(
+                r1.R, r1.t, mcfg.reloc_proj_th_wide, mcfg.th_high)
+            if tcfg.min_localmap_inliers <= n_inl < need:
+                assoc2, r2, n_inl = match_round(
+                    r2.R, r2.t, mcfg.reloc_proj_th_narrow,
+                    mcfg.reloc_orb_dist)
+        metrics["reloc_inliers"] = n_inl
+        if n_inl < need:
+            return False
+
+        # recovered: the pose, the associations and their validity in one
+        # fetch
+        R_cur = se3.orthonormalize(r2.R)
+        N = fd.xy_und.shape[0]
+        h = torch.cat([
+            R_cur.reshape(-1), r2.t,
+            assoc2.point_idx.to(torch.float32),
+            (assoc2.valid & r2.inliers).to(torch.float32)]).cpu().numpy()
+        Rc, tc = h[:9].reshape(3, 3).copy(), h[9:12].copy()
+        pid_local = h[12:12 + N].astype(np.int64)
+        keep = h[12 + N:] != 0
+        pid_global = np.where(keep, mp["ids"][pid_local], -1).astype(np.int32)
+        self.last_R, self.last_t = Rc, tc
+        self.last_frame = fd
+        self._set_last_assoc(pid_global)
+        self.vel_R, self.vel_t = None, None
+        self._prev_localmap_matches = n_inl
+        self._chain = None
+        self.state = TrackState.WORKING
+        self.last_reloc_frame_id = self.frame_id
+        metrics["event"] = "relocalized"
+        metrics["reloc_kf"] = cand
+        self.trajectory.append(FrameRecord(self.frame_id, timestamp, Rc, tc,
+                                           True))
+        return True
 
     # ------------------------------------------------------------------
     def _local_points(self, seed_pids: Optional[np.ndarray] = None) -> dict:
@@ -1139,6 +1341,8 @@ class Tracker:
                 if self.ref_kf >= 0:
                     self.ref_kf = int(lut[self.ref_kf])
                 self._sel_dirty = True
+                if self.loop_closer is not None:
+                    self.loop_closer.remap_keyframes(lut)
                 metrics["kf_compaction_freed"] = freed
 
         obs = np.asarray(pid_global, np.int32)
@@ -1170,6 +1374,16 @@ class Tracker:
 
         # keyframe-rate map building (synchronous)
         metrics.update(self.local_mapper.process_keyframe(smap, kf))
+
+        lc = self.loop_closer
+        if lc is not None and lc.db is not None:
+            # culled keyframes leave the place-recognition database
+            for ck in (self.local_mapper.last_culled_kfs or []):
+                lc.db = lc.db.remove(ck)
+                lc.kf_bow.pop(ck, None)
+        if lc is not None and lc.voc is not None:
+            # loop detection at keyframe rate (no correction yet)
+            metrics.update(lc.process_keyframe(smap, kf))
 
         # the keyframe pose may have moved in local BA (mirrors are exact)
         self.last_R = smap.host["kf_R"][kf].copy()

@@ -47,6 +47,11 @@ def test_import_leaves_jax_out():
             "import orb_slam_tpu_torch.pipeline.frame_step, "
             "orb_slam_tpu_torch.pipeline.system, "
             "orb_slam_tpu_torch.pipeline.async_mapper, "
+            "orb_slam_tpu_torch.pipeline.loop_closer, "
+            "orb_slam_tpu_torch.place.vocabulary, "
+            "orb_slam_tpu_torch.place.database, "
+            "orb_slam_tpu_torch.solvers.epnp, "
+            "orb_slam_tpu_torch.solvers.pnp, "
             "orb_slam_tpu_torch.entry, "
             "orb_slam_tpu_torch.native, orb_slam_tpu_torch.state, "
             "smoke_world, chip_smoke; "

@@ -260,8 +260,10 @@ def test_port_batched_partial_flush():
 def test_port_blackout_inside_a_batch(monkeypatch):
     """Two black frames inside a batch: the first loses tracking (reset
     disabled, so the state goes LOST), the batch's later rows go through
-    the staged state machine, and every later frame is recorded untracked
-    (relocalisation is not ported); no frame lacks a record."""
+    the staged state machine, the second black frame stays lost, and the
+    first frame after the blackout relocalizes (BoW relocalisation, as the
+    JAX tracker); every later frame tracks, and every frame has exactly one
+    record."""
     from orb_slam_tpu_torch.pipeline.tracker import Tracker
     aborted, orig = [], Tracker._abort_batch_rows
 
@@ -277,10 +279,12 @@ def test_port_blackout_inside_a_batch(monkeypatch):
     recs = _records_after_init(tracker, logs, 13)
     assert [l.get("event") for l in logs].count("tracking_lost") == 1
     assert logs[9].get("event") == "tracking_lost"
-    assert tracker.state == TrackState.LOST
-    assert 10 in aborted        # a later row of the lost frame's batch
-    assert all(recs[f].tracked for f in recs if f < 9)
-    assert not any(recs[f].tracked for f in recs if f >= 9)
+    assert logs[10].get("event") == "lost"
+    assert logs[11].get("event") == "relocalized"
+    assert tracker.state == TrackState.WORKING
+    assert 10 in aborted and 11 in aborted   # later rows of its batch
+    assert all(recs[f].tracked for f in recs if f < 9 or f >= 11)
+    assert not any(recs[f].tracked for f in (9, 10))
 
 
 def test_frame_batch_needs_async_and_is_clamped():
