@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: its two hand kernels, the
 per-frame tracking step, the synchronous System path, the bench
-configuration (async mapping, 16-frame batches) and relocalisation.
+configuration (async mapping, 16-frame batches), relocalisation, and the
+command line with its dataset reader and map checkpoints.
 
     python3 chip_smoke.py
 
@@ -62,7 +63,28 @@ Phases (any failure raises and the script exits non-zero):
               launched once per frame, host mirrors equal to their tables;
               then the winning attempt's PnP RANSAC on the card against the
               CPU with the same samples; prints the {"reloc": {...}} line
-  9. report   a JSON line of per-kernel numbers (with each kernel's share
+  9. cli      the user's entry points from disk: N_CLI frames of the sweep
+              rendered through fr1's intrinsics and distortion (rays of the
+              undistorted pixel grid, from an independent numpy inverse of
+              the Brown model) and written as a TUM folder (8-bit RGB PNGs
+              whose rows cycle through the five filter types, rgb.txt,
+              groundtruth.txt); the port's TumSequence must yield every
+              frame exactly (decode ms per frame reported); then
+              pipeline.system.main() on the card (--calib fr1): a
+              map_initialized event, >= 95% of the later frames tracked,
+              KeyFrameTrajectory.txt of 8-column rows, the printed ATE
+              under ATE_PATH_FRACTION of the ground-truth path length, each
+              kernel once per frame; prints the {"cli": {...}} line.
+              Resume: System A tracks the first RESUME_SAVE_AT frames and
+              saves a checkpoint, which loads on the card and on the CPU
+              with equal arrays; a fresh System B resumes it (LOST, the same
+              keyframes, mirrors equal to tables) and replays frames
+              RESUME_REPLAY with later timestamps: it must relocalize within
+              RELOC_WITHIN_REPLAY frames and track every frame after, its
+              camera centres within RESUME_CENTRE_FRACTION of A's path
+              length of A's centres for the same frames; prints the
+              {"resume": {...}} line
+ 10. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -117,6 +139,17 @@ RELOC_WITHIN = 15            # frames after the blackout's end
 PNP_INLIER_MASK_AGREE = 0.01  # card vs CPU: share of rows that may differ
 PNP_POSE_AGREE = 1e-4        # refined pose, rotation Frobenius / rel. t
 FNB_TILE = (32, 32)          # kernel 1's tile, (width, height), as its .cu
+# phase 9: the CLI on a TUM-layout folder of the sweep rendered through
+# fr1's calibration, then a checkpoint saved by one System and resumed by
+# a fresh one
+N_CLI = 120
+ATE_PATH_FRACTION = 0.02      # printed ATE / ground-truth path length
+BROWN_NEWTON_ITERS = 20
+BROWN_RESIDUAL_PX = 1e-6      # the numpy inverse of the distortion model
+RESUME_SAVE_AT = 90           # System A's frames before the checkpoint
+RESUME_REPLAY = range(40, 60)  # frames of the mapped region System B replays
+RELOC_WITHIN_REPLAY = 5
+RESUME_CENTRE_FRACTION = 0.02  # of System A's path length (map units)
 
 
 def log(msg):
@@ -502,11 +535,16 @@ def main():
     # --- 8. reloc ----------------------------------------------------------
     reloc = reloc_phase(dev, card, kernels)
 
-    # --- 9. report ---------------------------------------------------------
+    # --- 9. cli and resume ------------------------------------------------
+    cli, resume = cli_phase(dev, card, kernels)
+
+    # --- 10. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"reloc": reloc}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1209,6 +1247,423 @@ def reloc_phase(dev, card, kernels):
         f"{record['host_syncs_per_lost_frame']:.2f}; winning attempt "
         f"{record['winning_attempt']}; worker loopClosing "
         f"{record['worker_loop_closing_ms_per_keyframe']:.3f} ms/keyframe")
+    return record
+
+
+def encode_png(pixels, palette=None, level=6):
+    """An 8-bit non-interlaced PNG file's bytes, from the standard library:
+    uint8 pixels [H, W] or [H, W, C] (C = 1 grey, 2 grey + alpha, 3 RGB,
+    4 RGBA), or palette indices [H, W] with `palette` [n, 3] uint8.  Row y
+    is filtered with filter type y % 5, so a file of 5 rows or more holds
+    every filter (None, Sub, Up, Average, Paeth)."""
+    import struct
+    import zlib
+    px = np.asarray(pixels, np.uint8)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, c = px.shape
+    ctype = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    x = px.reshape(h, w * c).astype(np.int16)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, c:] = x[:, :-c]
+    upleft = np.zeros_like(x)
+    upleft[:, c:] = up[:, :-c]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    ft = np.arange(h) % 5
+    rows = np.concatenate([ft[:, None], (x - pred[ft, np.arange(h)]) & 255],
+                          axis=1).astype(np.uint8)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(body, zlib.crc32(kind))))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (out + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+def undistorted_rays(cam_cfg):
+    """[H, W, 3] float32 rays (x, y, 1) of the pixel grid of a camera with
+    cam_cfg's intrinsics and Brown distortion (k1, k2, k3 radial, p1, p2
+    tangential): each pixel's distorted normalized coordinates inverted
+    through the model by Newton's method in float64, independently of the
+    port's geometry/camera.py.  Returns (rays, the largest residual of the
+    inversion in pixels)."""
+    c = cam_cfg
+    uu, vv = np.meshgrid(np.arange(c.width, dtype=np.float64),
+                         np.arange(c.height, dtype=np.float64))
+    xd, yd = (uu - c.cx) / c.fx, (vv - c.cy) / c.fy
+
+    def distort(x, y):
+        r2 = x * x + y * y
+        rad = 1 + r2 * (c.k1 + r2 * (c.k2 + r2 * c.k3))
+        drad = c.k1 + r2 * (2 * c.k2 + 3 * c.k3 * r2)     # d rad / d r2
+        fx_ = x * rad + 2 * c.p1 * x * y + c.p2 * (r2 + 2 * x * x)
+        fy_ = y * rad + c.p1 * (r2 + 2 * y * y) + 2 * c.p2 * x * y
+        j11 = rad + 2 * x * x * drad + 2 * c.p1 * y + 6 * c.p2 * x
+        j12 = 2 * x * y * drad + 2 * c.p1 * x + 2 * c.p2 * y
+        j22 = rad + 2 * y * y * drad + 6 * c.p1 * y + 2 * c.p2 * x
+        return fx_, fy_, j11, j12, j22       # j21 == j12
+
+    x, y = xd.copy(), yd.copy()
+    for _ in range(BROWN_NEWTON_ITERS):
+        fx_, fy_, j11, j12, j22 = distort(x, y)
+        rx, ry = fx_ - xd, fy_ - yd
+        det = j11 * j22 - j12 * j12
+        x -= (j22 * rx - j12 * ry) / det
+        y -= (j11 * ry - j12 * rx) / det
+    fx_, fy_ = distort(x, y)[:2]
+    residual = float(max(np.abs(fx_ - xd).max() * c.fx,
+                         np.abs(fy_ - yd).max() * c.fy))
+    rays = np.stack([x, y, np.ones_like(x)], -1).astype(np.float32)
+    return rays, residual
+
+
+def write_tum_folder(root, cam_cfg):
+    """N_CLI frames of the bench sweep rendered through cam_cfg (rays of
+    the undistorted pixel grid) into a TUM-layout folder: rgb/*.png (8-bit
+    RGB, three equal channels), rgb.txt with a comment header and
+    groundtruth.txt (ts tx ty tz qx qy qz qw, camera to world).  Returns
+    (the frames [H, W] uint8, the camera centres [N, 3], the inversion's
+    residual in pixels)."""
+    import os
+    from scipy.spatial.transform import Rotation
+    import smoke_world as syn
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cam_cfg.K)
+    renderer.dirs, residual = undistorted_rays(cam_cfg)
+    os.makedirs(os.path.join(root, "rgb"))
+    frames, centres, rgb_lines, gt_lines = [], [], [], []
+    for i in range(N_CLI):
+        R, t = syn.pose_at(i)
+        img = renderer.render(R, t)
+        name = f"rgb/{i:04d}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(encode_png(np.repeat(img[..., None], 3, axis=2),
+                               level=1))
+        C = syn.camera_center(R, t)
+        q = Rotation.from_matrix(np.asarray(R, np.float64).T).as_quat()
+        ts = i / 30.0
+        rgb_lines.append(f"{ts:.6f} {name}")
+        gt_lines.append(f"{ts:.6f} " + " ".join(f"{v:.7f}" for v in C)
+                        + " " + " ".join(f"{v:.7f}" for v in q))
+        frames.append(img)
+        centres.append(C)
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("# color images\n# timestamp filename\n"
+                + "\n".join(rgb_lines) + "\n")
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("# ground truth trajectory\n# timestamp tx ty tz qx qy qz "
+                "qw\n" + "\n".join(gt_lines) + "\n")
+    return frames, np.asarray(centres, np.float64), residual
+
+
+def path_length(centres):
+    c = np.asarray(centres, np.float64)
+    return float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+
+
+def cli_phase(dev, card, kernels):
+    """Phase 9: the user's entry points from disk.  Writes a TUM-layout
+    folder, reads it back through the port's TumSequence, runs the CLI's
+    main() on the card, then saves a checkpoint from one System and
+    resumes it in a fresh one, which relocalizes into the loaded map.
+    Returns the {"cli": ...} and {"resume": ...} records; every check
+    raises."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+    import torch
+    from orb_slam_tpu_torch.config import tum_freiburg1_config
+    from orb_slam_tpu_torch.dataio.datasets import TumSequence, load_gray
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda
+    from orb_slam_tpu_torch.pipeline import system as system_mod
+
+    log(f"# phase 9: cli and resume, {N_CLI} frames of the sweep through "
+        f"fr1's intrinsics and distortion, written as a TUM folder")
+    cfg = tum_freiburg1_config()
+    kernel_fns = {"fast_nms_blur": fast_cuda.fast_nms_blur_stack,
+                  "orient_describe": describe_cuda.orient_describe}
+
+    def reset_launches():
+        torch.cuda.synchronize()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+
+    def read_launches(n_frames, what):
+        out = {n: fn.launches for n, fn in kernel_fns.items()}
+        for n, count in out.items():
+            check(count == n_frames,
+                  f"{n} launched {count} times in the {n_frames} frames of "
+                  f"{what} (once per frame)")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "seq")
+        t0 = time.perf_counter()
+        frames, centres, residual = write_tum_folder(root, cfg.camera)
+        write_s = time.perf_counter() - t0
+        check(residual <= BROWN_RESIDUAL_PX,
+              f"the Brown model's numpy inverse reproduces every pixel "
+              f"within {residual:.2e} px (<= {BROWN_RESIDUAL_PX})")
+
+        # the reader on the card's host: every frame exact, decode timed
+        # (after a first decode, which builds the compiled unfilter)
+        seq = TumSequence.open(root)
+        t0 = time.perf_counter()
+        load_gray(seq.paths[0])
+        first_decode_ms = (time.perf_counter() - t0) * 1e3
+        it = seq.frames()
+        decoded, decode_ms = [], []
+        for _ in range(len(seq)):
+            t0 = time.perf_counter()
+            ts, img = next(it)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            decoded.append((ts, img))
+        exact = all(img.dtype == np.float32 and img.shape == (480, 640)
+                    and np.array_equal(img, f.astype(np.float32))
+                    for (_, img), f in zip(decoded, frames))
+        check(len(seq) == N_CLI and exact,
+              f"TumSequence yields the {N_CLI} rendered frames exactly "
+              f"(float32 [480, 640])")
+        gt = seq.groundtruth()
+        check(gt.shape == (N_CLI, 8)
+              and np.abs(gt[:, 1:4] - centres).max() < 1e-6,
+              "TumSequence.groundtruth reads the written centres")
+
+        # the CLI, as a user calls it: main() on the card
+        out_dir = os.path.join(tmp, "out")
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            system = system_mod.main(["--dataset", "tum", "--root", root,
+                                      "--calib", "fr1", "--out-dir",
+                                      out_dir])
+        cli_s = time.perf_counter() - t0
+        out = buf.getvalue()
+        for line in out.splitlines():
+            if line.startswith(("frame ", "tracked ", "trajectory ", "ATE")):
+                log("  | " + line)
+        cli_launches = read_launches(N_CLI, "the CLI run")
+        for k in kernels:
+            k["cli_launches"] = cli_launches[k["name"]]
+        m = re.search(r"^frame (\d+): map_initialized", out, re.M)
+        check(m is not None, "the CLI printed a map_initialized event")
+        init = int(m.group(1)) - 1
+        tr = system.tracker
+        after = [r for r in tr.trajectory if r.frame_id > init]
+        check([r.frame_id for r in after] == list(range(init + 1, N_CLI)),
+              f"one trajectory record per frame after initialization "
+              f"(frame {init})")
+        frac = sum(r.tracked for r in after) / max(len(after), 1)
+        check(frac >= TRACKED_FRACTION,
+              f"{frac:.4f} of the {len(after)} frames after initialization "
+              f"tracked (>= {TRACKED_FRACTION})")
+        with open(os.path.join(out_dir, "KeyFrameTrajectory.txt")) as f:
+            rows = [r.split() for r in f.read().strip().splitlines()]
+        check(len(rows) >= 3 and all(len(r) == 8 for r in rows),
+              f"KeyFrameTrajectory.txt: {len(rows)} rows of 8 columns")
+        m_fps = re.search(r"^tracked (\d+) frames in ([0-9.]+)s "
+                          r"\(([0-9.]+) fps\)", out, re.M)
+        m_ate = re.search(r"^ATE RMSE \(Sim3-aligned\): ([0-9.]+) m", out,
+                          re.M)
+        check(m_fps is not None and int(m_fps.group(1)) == N_CLI,
+              f"the CLI printed the fps line for {N_CLI} frames")
+        length = path_length(centres)
+        check(m_ate is not None
+              and float(m_ate.group(1)) < ATE_PATH_FRACTION * length,
+              f"the printed ATE {m_ate and m_ate.group(1)} m is below "
+              f"{ATE_PATH_FRACTION} of the {length:.3f} m ground-truth path")
+        ate = float(system.evaluate_ate(gt))
+        cli = dict(
+            frames=N_CLI, write_folder_s=write_s, brown_residual_px=residual,
+            decode_ms_per_frame=dict(
+                median=float(np.median(decode_ms)),
+                p95=float(np.percentile(decode_ms, 95)),
+                max=float(np.max(decode_ms)),
+                first_call_with_build=first_decode_ms,
+                png_bytes_median=float(np.median([
+                    os.path.getsize(p) for p in seq.paths]))),
+            init_frame=init, tracked_fraction_after_init=frac,
+            keyframe_rows=len(rows), printed_fps=float(m_fps.group(3)),
+            main_s=cli_s, printed_ate_m=float(m_ate.group(1)), ate_m=ate,
+            path_length_m=length, ate_path_fraction=ate / length,
+            path_span_m=float(np.linalg.norm(centres.max(0)
+                                             - centres.min(0))),
+            events=[line for line in out.splitlines()
+                    if line.startswith("frame ")],
+            launches=cli_launches, card=card)
+        log(f"  decode {cli['decode_ms_per_frame']}; init at {init}; "
+            f"{frac:.4f} tracked; ATE {ate:.5f} m over a {length:.3f} m "
+            f"path; {cli['printed_fps']} fps printed")
+
+        resume = resume_run(cfg, decoded, tmp, reset_launches,
+                            read_launches, card)
+        for k in kernels:
+            k["resume_launches"] = sum(
+                r[k["name"]] for r in resume["launches"].values())
+    return cli, resume
+
+
+def resume_run(cfg, decoded, tmp, reset_launches, read_launches, card):
+    """Phase 9's second half: System A tracks the first RESUME_SAVE_AT
+    frames and saves a checkpoint; the file loads on the card and on the
+    CPU alike; a fresh System B resumes it and replays frames of the
+    mapped region with later timestamps: it must relocalize within
+    RELOC_WITHIN_REPLAY frames, track every frame after, and put the
+    camera where System A had it."""
+    import os
+    import torch
+    from orb_slam_tpu_torch.mapping import checkpoint, mapstore
+    from orb_slam_tpu_torch.pipeline.system import System
+
+    reset_launches()
+    sys_a = System.create(cfg)
+    for ts, img in decoded[:RESUME_SAVE_AT]:
+        sys_a.process_image(img, ts)
+    launches_a = read_launches(RESUME_SAVE_AT, "System A's run")
+    tra = sys_a.tracker
+    check(tra.state.name == "WORKING",
+          f"System A tracks at frame {RESUME_SAVE_AT - 1}")
+    path = os.path.join(tmp, "map.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_a.save_checkpoint(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mb = os.path.getsize(path) / 1e6
+    centres_a = {r.frame_id: -r.R.T @ r.t for r in tra.trajectory
+                 if r.tracked}
+    n_kf = tra.slam_map.n_kf
+    sys_a.shutdown()
+
+    t0 = time.perf_counter()
+    card_map = checkpoint.load_map(path, cfg.map)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    cpu_map = checkpoint.load_map(path, cfg.map, device="cpu")
+    same = (card_map.device.type == "cuda" and cpu_map.device.type == "cpu"
+            and (card_map.n_kf, card_map.n_mp) == (cpu_map.n_kf,
+                                                    cpu_map.n_mp) == (
+                n_kf, tra.slam_map.n_mp))
+    for name in mapstore.MapState._fields:
+        same &= torch.equal(getattr(card_map.state, name).cpu(),
+                            getattr(cpu_map.state, name))
+    for name in ("parent", "kf_frame_id", "kf_timestamp", "obs_np",
+                 "kf_valid_np", "mp_valid_np"):
+        same &= np.array_equal(getattr(card_map, name),
+                               getattr(cpu_map, name))
+    for name, arr in card_map.host.items():
+        same &= np.array_equal(arr, cpu_map.host[name])
+    check(same, f"the checkpoint ({mb:.2f} MB) loads on the card and on the "
+          f"CPU with equal arrays, counters and mirrors")
+    del card_map, cpu_map
+
+    sys_b = System.create(cfg)
+    trb = sys_b.tracker
+    adopt_ms, attempts = [], []
+    adopt, relocalize = trb.adopt_map, trb._relocalize
+
+    def timed_adopt(smap):
+        t0 = time.perf_counter()
+        adopt(smap)
+        adopt_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_relocalize(fd, timestamp, metrics):
+        s0 = sync_w.count
+        t0 = time.perf_counter()
+        relocalize(fd, timestamp, metrics)
+        syncs = sync_w.count - s0
+        torch.cuda.current_stream().synchronize()
+        attempts.append(dict(frame=trb.frame_id, event=metrics.get("event"),
+                             ms=(time.perf_counter() - t0) * 1e3,
+                             host_syncs=syncs,
+                             reloc_kf=metrics.get("reloc_kf"),
+                             candidates=metrics.get("reloc_candidates"),
+                             inliers=metrics.get("reloc_inliers")))
+
+    trb.adopt_map, trb._relocalize = timed_adopt, timed_relocalize
+    t0 = time.perf_counter()
+    sys_b.resume_checkpoint(path)
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    check(trb.state.name == "LOST" and trb.slam_map.n_kf == n_kf,
+          f"System B resumes LOST with the saved {n_kf} keyframes")
+    st = trb.slam_map.state
+    mirrors = (np.array_equal(st.kf_obs.cpu().numpy(), trb.slam_map.obs_np)
+               and np.array_equal(st.kf_valid.cpu().numpy(),
+                                  trb.slam_map.kf_valid_np)
+               and np.array_equal(st.mp_valid.cpu().numpy(),
+                                  trb.slam_map.mp_valid_np))
+    for name, arr in trb.slam_map.host.items():
+        mirrors &= np.array_equal(getattr(st, name).cpu().numpy(), arr)
+    check(mirrors, "every host mirror of the resumed map equals its table")
+    first_id = trb.frame_id
+    check(len(trb.loop_closer.db) == int(trb.slam_map.kf_valid_np.sum()),
+          "one database row per live keyframe after the resume")
+
+    reset_launches()
+    logs = []
+    with ThreadWarnings() as sync_w:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k, i in enumerate(RESUME_REPLAY):
+                ts = decoded[RESUME_SAVE_AT - 1][0] + (k + 1) / 30.0
+                logs.append(sys_b.process_image(decoded[i][1], ts))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sys_b.shutdown()
+    launches_b = read_launches(len(RESUME_REPLAY), "System B's replay")
+    events = [m.get("event") for m in logs]
+    log("  replay events: " + ", ".join(
+        f"{RESUME_REPLAY[k]}:{e}" for k, e in enumerate(events) if e))
+    check("relocalized" in events[:RELOC_WITHIN_REPLAY],
+          f"System B relocalized within {RELOC_WITHIN_REPLAY} replayed "
+          f"frames ({events})")
+    r = events.index("relocalized")
+    recs = [x for x in trb.trajectory if x.frame_id >= first_id + r]
+    check([x.frame_id for x in recs]
+          == list(range(first_id + r, first_id + len(RESUME_REPLAY)))
+          and all(x.tracked for x in recs),
+          f"every replayed frame from the relocalized one ({r}) on tracked")
+    err = max(float(np.linalg.norm(
+        -x.R.T @ x.t - centres_a[RESUME_REPLAY[x.frame_id - first_id]]))
+        for x in recs)
+    length = path_length([centres_a[f] for f in sorted(centres_a)])
+    check(err <= RESUME_CENTRE_FRACTION * length,
+          f"System B's centres within {err:.5f} of System A's for the same "
+          f"frames (<= {RESUME_CENTRE_FRACTION} of A's {length:.4f} path, "
+          f"map units)")
+    won = [a for a in attempts if a["event"] == "relocalized"][0]
+    record = dict(
+        saved_after_frames=RESUME_SAVE_AT, keyframes=n_kf,
+        map_points=int(trb.slam_map.n_mp), checkpoint_mb=mb,
+        save_ms=save_ms, load_ms_card=load_ms, resume_ms=resume_ms,
+        adopt_ms=adopt_ms[0],
+        replayed=[RESUME_REPLAY.start, RESUME_REPLAY.stop],
+        relocalized_replay_index=r,
+        relocalized_frame=RESUME_REPLAY[r], attempts=len(attempts),
+        winning_attempt=won,
+        lost_attempt_ms=[a["ms"] for a in attempts
+                         if a["event"] != "relocalized"],
+        centre_err_max=err, path_length_a=length,
+        centre_err_path_fraction=err / length,
+        launches=dict(system_a=launches_a, replay=launches_b), card=card)
+    log(f"  checkpoint {mb:.2f} MB, save {save_ms:.1f} ms, load "
+        f"{load_ms:.1f} ms, adopt {adopt_ms[0]:.1f} ms; relocalized at "
+        f"replay {r} (frame {RESUME_REPLAY[r]}) in {won['ms']:.1f} ms, "
+        f"{won['host_syncs']} host syncs; centres within {err:.5f} "
+        f"({err / length:.5f} of the path)")
     return record
 
 

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) and its host
-graph extension (``csrc/graphops.cpp``, built by ``g++``; see
-``build_host_extension``).
+extensions (``csrc/graphops.cpp`` and ``csrc/png_unfilter.cpp``, built by
+``g++``; see ``load_host_extension``).
 
 Each source is compiled by ``nvcc`` for Hopper (sm_90a) into its own shared
 library with a plain C interface, and loaded with ``ctypes``.  Libraries go
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import re
 import shutil
@@ -98,7 +99,7 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-HOST_SOURCES = ("graphops",)
+HOST_SOURCES = ("graphops", "png_unfilter")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
@@ -135,6 +136,17 @@ def build_host_extension(name: str) -> str:
                            f"{r.stdout}{r.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def load_host_extension(name: str):
+    """The Python module of csrc/<name>.cpp, built first if needed (its
+    init function is PyInit__<name>).  Raises if the build fails."""
+    path = build_host_extension(name)
+    spec = importlib.util.spec_from_file_location(
+        f"orb_slam_tpu_torch._{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def parse_ptxas(log: str) -> dict:

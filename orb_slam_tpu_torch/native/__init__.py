@@ -14,7 +14,6 @@ never quietly turns into the numpy path there.
 """
 from __future__ import annotations
 
-import importlib.util
 import threading
 
 import numpy as np
@@ -35,12 +34,7 @@ def _load():
         if not _tried:
             _tried = True
             try:
-                path = _build.build_host_extension("graphops")
-                spec = importlib.util.spec_from_file_location(
-                    "orb_slam_tpu_torch.native._graphops", path)
-                mod = importlib.util.module_from_spec(spec)
-                spec.loader.exec_module(mod)
-                _mod = mod
+                _mod = _build.load_host_extension("graphops")
             except Exception as e:   # kept and re-raised by require_compiled
                 _error = f"{type(e).__name__}: {e}"
         return _mod

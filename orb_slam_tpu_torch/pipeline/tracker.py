@@ -26,8 +26,11 @@ RANSAC, pose refinement and local-map re-acquisition.  Every new keyframe
 goes to the place-recognition database (``loop_closer.py``), on the worker
 with async mapping.
 
+``adopt_map`` resumes from a checkpointed map: tracking re-enters LOST
+and relocalizes into it.
+
 Not ported: the geometric check and correction of loop candidates (loop
-closing stops at detection) and checkpoint resume; the JAX package's
+closing stops at detection); the JAX package's
 ``prewarm_commit_variants`` (there is nothing to compile) and
 ``_start_host_prefetch`` (a workaround for its device link).
 A partial flush of the batch buffer dispatches only its frames: the JAX
@@ -370,6 +373,57 @@ class Tracker:
         if self.async_mapper is not None:
             self.async_mapper.shutdown()
             self.async_mapper = None
+
+    def adopt_map(self, smap: mapstore.SlamMap):
+        """Resume from a checkpointed map (mapping/checkpoint.py): tracking
+        re-enters LOST (NOT_INITIALIZED for an empty map) and relocalizes
+        into the loaded map.  In-flight frames are retired and in-flight
+        mapping work committed first; every per-session cache is dropped
+        (the _reset_map list, the frame chain, the last frame's
+        associations).  Place recognition is rebuilt from the map's host
+        descriptor mirrors, so resume reads nothing back from the device.
+        Like the JAX tracker, _force_kf and _prev_localmap_matches are
+        left as they were."""
+        self.finish()
+        self.slam_map = smap
+        self.state = TrackState.LOST if smap.n_kf else \
+            TrackState.NOT_INITIALIZED
+        self.frame_id = (int(smap.kf_frame_id[: smap.n_kf].max()) + 1
+                         if smap.n_kf else 0)
+        live = np.where(smap.kf_valid_np[: smap.n_kf])[0]
+        self.ref_kf = int(live[-1]) if len(live) else -1
+        if self.ref_kf >= 0:
+            self.last_R = smap.host["kf_R"][self.ref_kf].copy()
+            self.last_t = smap.host["kf_t"][self.ref_kf].copy()
+        self.last_frame = None
+        self._last_stacked = None
+        self._chain = None
+        self._pipe = []
+        self._batch_buf = []
+        self._sel_cache = None
+        self._sel_dirty = True
+        self.vel_R, self.vel_t = None, None
+        self.last_kf_frame_id = -10**9
+        self.last_reloc_frame_id = -10**9
+        self.n_ref_tracked = 0
+        self.last_assoc_pid = None
+        self.last_assoc_pos = None
+        self.last_assoc_valid = None
+
+        lc = self.loop_closer
+        if lc is None:
+            return
+        # the configured or shipped vocabulary, else one trained on the
+        # map's own descriptors
+        lc.ensure_vocabulary(lambda: smap.host["kf_desc"][live][
+            smap.host["kf_kp_valid"][live]][:20000])
+        lc.db = db_mod.BowDatabase.create(
+            smap.cfg.max_keyframes, self.cfg.extractor.max_keypoints)
+        lc.kf_bow = {}
+        for k in live:
+            lc.add_keyframe(smap, int(k))
+        lc.consistent_groups = []
+        lc.last_loop_kf = -(10 ** 9)
 
     def extract(self, image) -> FrameFeatures:
         """Batched extraction (kernels 1 and 2).  Before the map exists the

@@ -52,6 +52,11 @@ def test_import_leaves_jax_out():
             "orb_slam_tpu_torch.place.database, "
             "orb_slam_tpu_torch.solvers.epnp, "
             "orb_slam_tpu_torch.solvers.pnp, "
+            "orb_slam_tpu_torch.dataio.settings, "
+            "orb_slam_tpu_torch.dataio.datasets, "
+            "orb_slam_tpu_torch.dataio.png, "
+            "orb_slam_tpu_torch.mapping.checkpoint, "
+            "orb_slam_tpu_torch.utils.viz, "
             "orb_slam_tpu_torch.entry, "
             "orb_slam_tpu_torch.native, orb_slam_tpu_torch.state, "
             "smoke_world, chip_smoke; "
