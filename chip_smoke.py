@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: its two hand kernels, the
 per-frame tracking step, the synchronous System path, the bench
-configuration (async mapping, 16-frame batches), relocalisation, and the
-command line with its dataset reader and map checkpoints.
+configuration (async mapping, 16-frame batches), relocalisation, the
+command line with its dataset reader and map checkpoints, and bundle
+adjustment on the grid layout, in the System and at scale.
 
     python3 chip_smoke.py
 
@@ -84,7 +85,20 @@ Phases (any failure raises and the script exits non-zero):
               camera centres within RESUME_CENTRE_FRACTION of A's path
               length of A's centres for the same frames; prints the
               {"resume": {...}} line
- 10. report   a JSON line of per-kernel numbers (with each kernel's share
+ 10. ba       the GRID edge layout: phase 6's System path with
+              SolverConfig(ba_layout="grid") on N_BA_FRAMES frames from
+              frame 0 (initialization within BA_INIT_WITHIN frames, every
+              later frame tracked, the ATE under ATE_SPAN_FRACTION of the
+              span, each kernel once per frame; localBA ms per keyframe
+              beside phase 6's flat figure); then
+              scripts/torch_ba_city_bench.py's ring world at 64 KF x 8192
+              points in all five layout / placement / solver combinations
+              (ms per LM iteration, bound, peak memory; final costs within
+              BA_COST_AGREE of flat/dense), scatter and onehot placing the
+              same G, flat/dense and grid/cg on the card against the CPU
+              (cost within BA_COST_AGREE), and the 256 KF x 16384 grid/cg
+              case once; prints the {"ba": {...}} line
+ 11. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -150,6 +164,11 @@ RESUME_SAVE_AT = 90           # System A's frames before the checkpoint
 RESUME_REPLAY = range(40, 60)  # frames of the mapped region System B replays
 RELOC_WITHIN_REPLAY = 5
 RESUME_CENTRE_FRACTION = 0.02  # of System A's path length (map units)
+# phase 10: bundle adjustment on the GRID layout, in the System and at scale
+N_BA_FRAMES = 60
+BA_INIT_WITHIN = 5
+BA_COST_AGREE = 1e-3          # relative: variants against flat/dense, card
+                              # against the CPU
 
 
 def log(msg):
@@ -538,13 +557,17 @@ def main():
     # --- 9. cli and resume ------------------------------------------------
     cli, resume = cli_phase(dev, card, kernels)
 
-    # --- 10. report --------------------------------------------------------
+    # --- 10. ba -------------------------------------------------------------
+    ba = ba_phase(dev, card, kernels, system)
+
+    # --- 11. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"reloc": reloc}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"resume": resume}), flush=True)
+    print(json.dumps({"ba": ba}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -601,6 +624,25 @@ def init_shape_kernels(dev, kernels):
 def system_phase(dev, card, kernels):
     """Phase 6: System.process_image from frame 0 of the bench sweep on the
     card.  Returns the {"system": ...} record; every check raises."""
+    log(f"# phase 6: system, {N_SYSTEM_FRAMES} frames of the sweep from "
+        f"frame 0")
+    init_shape_kernels(dev, kernels)
+    record = system_run(dev, card, system_config(), N_SYSTEM_FRAMES,
+                        INIT_WITHIN, TRACKED_FRACTION)
+    for k in kernels:
+        k["system_launches"] = record["launches"][k["name"]]
+    return record
+
+
+def system_run(dev, card, cfg, n_frames, init_within, tracked_fraction):
+    """System.process_image with synchronous mapping on the first
+    `n_frames` frames of the bench sweep on the card, under configuration
+    `cfg`: the map must initialize within `init_within` frames, at least
+    `tracked_fraction` of the later frames track, >= MIN_KEYFRAMES
+    keyframes each run local mapping with local BA, the ATE stays under
+    ATE_SPAN_FRACTION of the span, the compiled graphops run and each
+    kernel launches once per frame.  Returns the record (stage times,
+    host syncs, launches); every check raises."""
     import torch
     import smoke_world as syn
     from orb_slam_tpu_torch import native
@@ -609,13 +651,8 @@ def system_phase(dev, card, kernels):
     from orb_slam_tpu_torch.pipeline.system import System
     from orb_slam_tpu_torch.utils.timing import GLOBAL_TIMER
 
-    log(f"# phase 6: system, {N_SYSTEM_FRAMES} frames of the sweep from "
-        f"frame 0")
-    init_shape_kernels(dev, kernels)
-    cfg = system_config()
     renderer = syn.SceneRenderer(np.random.default_rng(SEED), cfg.camera.K)
-    frames = [renderer.render(*syn.pose_at(i))
-              for i in range(N_SYSTEM_FRAMES)]
+    frames = [renderer.render(*syn.pose_at(i)) for i in range(n_frames)]
     t0 = time.perf_counter()
     system = System.create(cfg, device=dev)
     check(native.backend() == "compiled",
@@ -653,22 +690,20 @@ def system_phase(dev, card, kernels):
     launches = {"fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
                 "orient_describe": describe_cuda.orient_describe.launches}
     GLOBAL_TIMER.sync = None
-    for k in kernels:
-        k["system_launches"] = launches[k["name"]]
-        check(k["system_launches"] == N_SYSTEM_FRAMES,
-              f"{k['name']} launched {k['system_launches']} times in "
-              f"{N_SYSTEM_FRAMES} frames (one per extracting frame)")
+    for name, count in launches.items():
+        check(count == n_frames, f"{name} launched {count} times in "
+              f"{n_frames} frames (one per extracting frame)")
 
     events = [m.get("event") for m in logs]
     log("  events: " + ", ".join(f"{i}:{e}" for i, e in enumerate(events)
                                  if e))
-    check("map_initialized" in events[:INIT_WITHIN],
-          f"map initialized within {INIT_WITHIN} frames")
+    check("map_initialized" in events[:init_within],
+          f"map initialized within {init_within} frames")
     init = events.index("map_initialized")
     tr = system.tracker
     after = [r for r in tr.trajectory if r.frame_id > init]
     frac = sum(r.tracked for r in after) / max(len(after), 1)
-    check(frac >= TRACKED_FRACTION, f"{frac:.4f} of the {len(after)} frames "
+    check(frac >= tracked_fraction, f"{frac:.4f} of the {len(after)} frames "
           f"after initialization (frame {init}) tracked")
     kf_frames = [i for i, e in enumerate(events) if e == "keyframe_inserted"]
     n_ba = GLOBAL_TIMER.counts.get("mapping/localBA", 0)
@@ -691,7 +726,7 @@ def system_phase(dev, card, kernels):
                              smap.mp_valid_np),
           "host mirrors equal to the device tables after the run")
 
-    working = [i for i in range(init + 1, N_SYSTEM_FRAMES)
+    working = [i for i in range(init + 1, n_frames)
                if events[i] is None and logs[i]["state"] == "WORKING"]
     kf_after = [i for i in kf_frames if i > init]
 
@@ -701,7 +736,7 @@ def system_phase(dev, card, kernels):
 
     w_ms = [wall[i] for i in working]
     record = dict(
-        frames=N_SYSTEM_FRAMES, init_frame=init, init_ms=wall[init],
+        frames=n_frames, init_frame=init, init_ms=wall[init],
         init_frames_ms=sum(wall[:init + 1]),
         tracking_ms_per_frame=dict(
             median=float(np.median(w_ms)), min=float(min(w_ms)),
@@ -720,11 +755,126 @@ def system_phase(dev, card, kernels):
             tr.slam_map.mp_valid_np.sum()),
         tracked_fraction_after_init=frac, ate_m=ate, path_span_m=span,
         ate_span_fraction=ate / span, graphops=native.backend(),
-        launches=launches, synchronize_flagged=bool(probe), card=card)
+        launches=launches, synchronize_flagged=bool(probe),
+        ba_layout=cfg.solver.ba_layout, card=card)
     log(f"  tracking {record['tracking_ms_per_frame']} ms/frame; keyframe "
         f"frames {record['keyframe_frame_ms']} ms; mapping per keyframe "
         f"{record['mapping_ms_per_keyframe']}; syncs "
         f"{record['host_syncs']}")
+    return record
+
+
+def ba_city_bench():
+    """scripts/torch_ba_city_bench.py as a module (its ring world, timing
+    and bounds)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_ba_city_bench.py")
+    spec = importlib.util.spec_from_file_location("torch_ba_city_bench",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ba_phase(dev, card, kernels, system_record):
+    """Phase 10: bundle adjustment on the GRID layout.  (a) the System path
+    of phase 6 with ba_layout="grid" on N_BA_FRAMES frames; (b) the ring
+    world at 64 KF x 8192 points in all five layout / placement / solver
+    combinations, their final costs against flat/dense, scatter against
+    onehot G, and flat/dense and grid/cg on the card against the CPU;
+    (c) the 256 KF grid/cg case.  Returns the {"ba": ...} record; every
+    check raises."""
+    import torch
+    from orb_slam_tpu_torch.config import SolverConfig
+    from orb_slam_tpu_torch.solvers import bundle_adjust as ba
+    log(f"# phase 10: ba, the System path on the grid layout "
+        f"({N_BA_FRAMES} frames), then BA at 64 and 256 keyframes")
+    t_phase = time.perf_counter()
+
+    # (a) the System path with every BA on the grid
+    cfg = system_config().replace(solver=SolverConfig(ba_layout="grid"))
+    system = system_run(dev, card, cfg, N_BA_FRAMES, BA_INIT_WITHIN, 1.0)
+    for k in kernels:
+        k["ba_launches"] = system["launches"][k["name"]]
+    grid_ms = system["mapping_ms_per_keyframe"]["localBA"]
+    flat_ms = system_record["mapping_ms_per_keyframe"]["localBA"]
+    log(f"  localBA {grid_ms:.1f} ms per keyframe on the grid, "
+        f"{flat_ms:.1f} on the flat layout (phase 6)")
+
+    # (b) BA at local-BA scale, every combination
+    bcb = ba_city_bench()
+    K, P = 64, bcb.CASES[64]
+    cases = [bcb.time_case(K, P, s, lay, pl, str(dev), reps=1)
+             for s, lay, pl in bcb.VARIANTS[64]]
+    ref = cases[0]["final_cost"]                       # flat / dense
+    for c in cases:
+        rel = abs(c["final_cost"] / ref - 1.0)
+        c["cost_rel_to_flat_dense"] = rel
+        check(c["valid"] and np.isfinite(c["final_cost"])
+              and rel <= BA_COST_AGREE,
+              f"{K} KF {c['layout']}/{c['placement'] or '-'}/{c['solver']}: "
+              f"final cost {c['final_cost']:.2f} within {rel:.2e} of "
+              f"flat/dense (<= {BA_COST_AGREE}); {c['ms_per_iter']:.3f} "
+              f"ms/iter, bound {c['speed_of_light_ms']:.4f} ms "
+              f"({c['bound_by']}), peak "
+              f"{(c['peak_mem_bytes'] or 0) / 2**20:.0f} MiB")
+    # scatter and onehot place the same G: random blocks at the grid's
+    # own (camera, point) structure, masked slots zero
+    problem = bcb.make_problem(np.random.default_rng(1), K, P, str(dev),
+                               layout="grid")
+    pt, valid = problem[4].pt_idx, problem[4].valid
+    gen = torch.Generator(device=dev).manual_seed(1)
+    blk = torch.randn(pt.shape + (6, 3), generator=gen, device=dev) \
+        * valid[..., None, None]
+    from orb_slam_tpu_torch.device import true_fp32
+    with true_fp32():
+        g_sc = ba._place_grid(blk, pt, P, "scatter")
+        g_oh = ba._place_grid(blk, pt, P, "onehot")
+    g_err = float((g_sc - g_oh).abs().max())
+    check(g_err == 0.0, f"scatter and onehot place the same G "
+          f"{list(g_sc.shape)} (max abs err {g_err})")
+    del g_sc, g_oh, blk, problem
+    # the card against the CPU on the same problem
+    cpu_rel = {}
+    for solver, layout in (("dense", "flat"), ("cg", "grid")):
+        costs = []
+        for d in (str(dev), "cpu"):
+            pr = bcb.make_problem(np.random.default_rng(2), K, P, d,
+                                  layout=layout)
+            costs.append(float(bcb.solve(pr, solver, "scatter",
+                                         bcb.I_HI).cost))
+        cpu_rel[f"{layout}/{solver}"] = abs(costs[0] / costs[1] - 1.0)
+        check(cpu_rel[f"{layout}/{solver}"] <= BA_COST_AGREE,
+              f"{K} KF {layout}/{solver}: card cost {costs[0]:.3f} against "
+              f"the CPU's {costs[1]:.3f} (rel "
+              f"{cpu_rel[f'{layout}/{solver}']:.2e} <= {BA_COST_AGREE})")
+
+    # (c) city scale: 256 KF grid / cg
+    city = bcb.time_case(256, bcb.CASES[256], "cg", "grid", "scatter",
+                         str(dev), reps=1)
+    check(city["valid"] and np.isfinite(city["final_cost"]),
+          f"256 KF grid/cg: {city['ms_per_iter']:.3f} ms/iter against a "
+          f"{city['speed_of_light_ms']:.3f} ms bound ({city['bound_by']}), "
+          f"peak {(city['peak_mem_bytes'] or 0) / 2**20:.0f} MiB, final cost "
+          f"{city['final_cost']:.1f}")
+    record = dict(
+        system=dict(
+            frames=N_BA_FRAMES, init_frame=system["init_frame"],
+            tracked_fraction_after_init=system[
+                "tracked_fraction_after_init"],
+            ate_span_fraction=system["ate_span_fraction"],
+            keyframes_inserted=system["keyframes_inserted"],
+            localBA_ms_per_keyframe_grid=grid_ms,
+            localBA_ms_per_keyframe_flat_phase6=flat_ms,
+            mapping_ms_per_keyframe=system["mapping_ms_per_keyframe"],
+            tracking_ms_per_frame=system["tracking_ms_per_frame"],
+            host_syncs=system["host_syncs"], launches=system["launches"]),
+        cases_64kf=cases, g_scatter_vs_onehot_max_abs_err=g_err,
+        card_vs_cpu_cost_rel=cpu_rel, case_256kf_grid_cg=city,
+        phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"  phase 10 took {record['phase_s']:.1f} s")
     return record
 
 

@@ -336,12 +336,9 @@ class LocalMapper:
     def _build_ba_problem(self, smap: mapstore.SlamMap, window, fixed_kfs,
                           point_ids):
         """A (window, fixed, points) selection as BA tensors, sized
-        exactly.  Returns (Rs, ts, Xs, fixed_mask, edges, bookkeeping)."""
+        exactly, in the configured edge layout.  Returns (Rs, ts, Xs,
+        fixed_mask, edges, bookkeeping)."""
         mc = self.cfg.map
-        if self.cfg.solver.ba_layout != "flat":
-            raise NotImplementedError(
-                f"ba_layout={self.cfg.solver.ba_layout!r}: only the flat "
-                "layout is ported in this slice")
         window = list(window)[: mc.local_ba_max_kfs]
         fixed_kfs = list(fixed_kfs)[: mc.local_ba_max_fixed]
         cams = window + fixed_kfs
@@ -353,28 +350,43 @@ class LocalMapper:
         lut[point_ids] = np.arange(n_pt, dtype=np.int32)
         obs = smap.obs_np[cams]
         kpv = smap.host["kf_kp_valid"][cams]
-        cam_idx, pt_idx, slot_idx, ev = native.pack_ba_edges(
-            np.ascontiguousarray(obs), np.ascontiguousarray(kpv), lut)
-        # only the live edges: the problem is sized exactly
-        live = np.flatnonzero(ev)
         s2 = self.cfg.extractor.sigma2
-        uv = smap.host["kf_xy"][cams].reshape(-1, 2)[live]
-        lev = smap.host["kf_level"][cams].reshape(-1)[live]
-        inv_s2 = (1.0 / s2[np.clip(lev, 0, len(s2) - 1)]).astype(np.float32)
-        edges = ba.BAEdges(
-            cam_idx=upload(cam_idx[live].astype(np.int64), dev),
-            pt_idx=upload(pt_idx[live].astype(np.int64), dev),
-            uv=upload(uv.astype(np.float32), dev),
-            inv_sigma2=upload(inv_s2, dev),
-            valid=torch.ones(len(live), dtype=torch.bool, device=dev))
+        if self.cfg.solver.ba_layout == "grid":
+            # the camera-major [n_cam, N] table: the observation rows of
+            # the window and fixed cameras ARE the edges, no compaction
+            pt_loc = lut[np.where(obs >= 0, obs, mc.max_points)]
+            ev = (pt_loc >= 0) & kpv
+            lev = smap.host["kf_level"][cams]
+            inv_s2 = 1.0 / s2[np.clip(lev, 0, len(s2) - 1)]
+            edges = ba.BAEdges(
+                cam_idx=None,
+                pt_idx=upload(np.where(ev, pt_loc, 0).astype(np.int64), dev),
+                uv=upload(smap.host["kf_xy"][cams].astype(np.float32), dev),
+                inv_sigma2=upload(inv_s2.astype(np.float32), dev),
+                valid=upload(ev, dev))
+            book_edges = dict(ev=ev)
+        else:
+            cam_idx, pt_idx, slot_idx, ev = native.pack_ba_edges(
+                np.ascontiguousarray(obs), np.ascontiguousarray(kpv), lut)
+            # only the live edges: the problem is sized exactly
+            live = np.flatnonzero(ev)
+            uv = smap.host["kf_xy"][cams].reshape(-1, 2)[live]
+            lev = smap.host["kf_level"][cams].reshape(-1)[live]
+            inv_s2 = 1.0 / s2[np.clip(lev, 0, len(s2) - 1)]
+            edges = ba.BAEdges(
+                cam_idx=upload(cam_idx[live].astype(np.int64), dev),
+                pt_idx=upload(pt_idx[live].astype(np.int64), dev),
+                uv=upload(uv.astype(np.float32), dev),
+                inv_sigma2=upload(inv_s2.astype(np.float32), dev),
+                valid=torch.ones(len(live), dtype=torch.bool, device=dev))
+            book_edges = dict(slot_idx=slot_idx[live], cam_idx=cam_idx[live])
         Rs = upload(smap.host["kf_R"][cams], dev)
         ts = upload(smap.host["kf_t"][cams], dev)
         fixed_mask = np.zeros(len(cams), bool)
         fixed_mask[len(window):] = True
         Xs = upload(smap.host["mp_pos"][point_ids].reshape(-1, 3), dev)
         book = dict(window=window, fixed=fixed_kfs, point_ids=point_ids,
-                    cams=cams, slot_idx=slot_idx[live],
-                    cam_idx=cam_idx[live])
+                    cams=cams, **book_edges)
         return Rs, ts, Xs, upload(fixed_mask, dev), edges, book
 
     def _write_back(self, smap: mapstore.SlamMap, res: ba.BAResult, book):
@@ -395,9 +407,16 @@ class LocalMapper:
         X_h = hb[o:o + 3 * n_pt].reshape(n_pt, 3)
         o += 3 * n_pt
         inl = hb[o:] != 0
-        bad = ~inl
-        glob_cam = np.asarray(book["cams"], np.int64)[book["cam_idx"]]
-        erase = (glob_cam * N + book["slot_idx"].astype(np.int64))[bad]
+        cams = np.asarray(book["cams"], np.int64)
+        if "ev" in book:
+            # grid: inliers are [n_cam, N], slot n of row k IS keyframe
+            # cams[k]'s slot n
+            bad = (book["ev"] & ~inl.reshape(K_p, N)).reshape(-1)
+            flat = (cams[:, None] * N + np.arange(N, dtype=np.int64))
+            erase = flat.reshape(-1)[bad]
+        else:
+            erase = (cams[book["cam_idx"]] * N
+                     + book["slot_idx"].astype(np.int64))[~inl]
 
         _ba_write_back(st, window, res.R, res.t, point_ids, res.points,
                        erase)
@@ -466,8 +485,8 @@ class LocalMapper:
                 "the multi-device slice of the port")
         return ba.bundle_adjust(Rs, ts, Xs, fixed, edges, self.cam,
                                 self.cfg.solver, two_phase=two_phase,
-                                phase2=phase2,
-                                layout=self.cfg.solver.ba_layout)
+                                placement=self.cfg.solver.ba_placement,
+                                phase2=phase2)
 
     # ------------------------------------------------------------------
     def cull_keyframes(self, smap: mapstore.SlamMap, current_kf: int) -> int:

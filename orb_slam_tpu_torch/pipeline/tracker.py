@@ -219,10 +219,6 @@ class Tracker:
                 stacklevel=2)
             cfg = cfg.replace(tracker=dataclasses.replace(
                 tcfg, frame_batch=max_fb))
-        if cfg.solver.ba_layout != "flat":
-            raise NotImplementedError(
-                f"ba_layout={cfg.solver.ba_layout!r}: the GRID layout comes "
-                "with a later slice of the port")
         dev = resolve_device(device)
         if dev.type == "cuda":
             # the card's path runs the compiled host graph ops, never the

@@ -121,14 +121,21 @@ def test_bundle_adjust_matches_jax(two_phase):
 
 
 def test_unported_layouts_raise():
+    """Every layout, placement and solver of the JAX package runs in the
+    port; the landmark-sharded solver (mesh.data_parallel > 1) is the one
+    BA mode left, and the local mapper raises for it before solving."""
+    from orb_slam_tpu_torch.pipeline.local_mapper import LocalMapper
     pr = _problem()
     edges = tba.BAEdges(
         cam_idx=t_of(pr["cam"]).long(), pt_idx=t_of(pr["pt"]).long(),
         uv=t_of(pr["uv"]), inv_sigma2=t_of(pr["inv_s2"]),
         valid=torch.ones(len(pr["cam"]), dtype=torch.bool))
     args = (t_of(pr["R"]), t_of(pr["t"]), t_of(pr["X"]), t_of(pr["fixed"]),
-            edges, tcam(tc.CameraConfig(**CAM), device="cpu"))
-    with pytest.raises(NotImplementedError):
-        tba.bundle_adjust(*args, layout="grid")
-    with pytest.raises(NotImplementedError):
-        tba.bundle_adjust(*args, solver="cg")
+            edges)
+    cam = tcam(tc.CameraConfig(**CAM), device="cpu")
+    lm = LocalMapper(cfg=tc.SystemConfig(mesh=tc.MeshConfig(
+        data_parallel=2)), cam=cam)
+    with pytest.raises(NotImplementedError, match="data_parallel"):
+        lm._run_ba(*args, two_phase=True)
+    with pytest.raises(ValueError, match="solver"):
+        tba.bundle_adjust(*args, cam, solver="sparse")

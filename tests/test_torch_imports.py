@@ -15,7 +15,8 @@ def _port_files():
              os.path.join(ROOT, "smoke_world.py"),
              os.path.join(ROOT, "scripts", "torch_frame_profile.py"),
              os.path.join(ROOT, "scripts", "torch_system_profile.py"),
-             os.path.join(ROOT, "scripts", "torch_bench.py")]
+             os.path.join(ROOT, "scripts", "torch_bench.py"),
+             os.path.join(ROOT, "scripts", "torch_ba_city_bench.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -57,6 +58,8 @@ def test_import_leaves_jax_out():
             "orb_slam_tpu_torch.dataio.png, "
             "orb_slam_tpu_torch.mapping.checkpoint, "
             "orb_slam_tpu_torch.utils.viz, "
+            "orb_slam_tpu_torch.utils.profiling, "
+            "orb_slam_tpu_torch.solvers.bundle_adjust, "
             "orb_slam_tpu_torch.entry, "
             "orb_slam_tpu_torch.native, orb_slam_tpu_torch.state, "
             "smoke_world, chip_smoke; "

@@ -198,18 +198,21 @@ def test_port_alone_unpinned_tracks_to_end():
 
 
 def test_unported_modes_raise():
+    """The grid layout and the CG solver are ported; the landmark-sharded
+    BA (mesh.data_parallel > 1) is not, and a System configured for it
+    raises at its first bundle adjustment."""
     from orb_slam_tpu_torch.solvers import bundle_adjust as tba
-    with pytest.raises(NotImplementedError):
-        System.create(tc.SystemConfig(solver=tc.SolverConfig(
-            ba_layout="grid")), device="cpu")
+    system = System.create(tc.SystemConfig(
+        solver=tc.SolverConfig(ba_layout="grid", ba_placement="onehot"),
+        mesh=tc.MeshConfig(data_parallel=2)), device="cpu")
     edges = tba.BAEdges(cam_idx=torch.zeros(1, dtype=torch.int64),
                         pt_idx=torch.zeros(1, dtype=torch.int64),
                         uv=torch.zeros(1, 2), inv_sigma2=torch.ones(1),
                         valid=torch.ones(1, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        tba.bundle_adjust(torch.eye(3)[None], torch.zeros(1, 3),
-                          torch.ones(1, 3), torch.ones(1, dtype=torch.bool),
-                          edges, None, solver="cg")
+    with pytest.raises(NotImplementedError, match="data_parallel"):
+        system.tracker.local_mapper._run_ba(
+            torch.eye(3)[None], torch.zeros(1, 3), torch.ones(1, 3),
+            torch.ones(1, dtype=torch.bool), edges, two_phase=False)
     if not torch.cuda.is_available():    # the default device is the card
         with pytest.raises(RuntimeError):
             System.create(tc.SystemConfig())
