@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: its two hand kernels, the
 per-frame tracking step, the synchronous System path, the bench
 configuration (async mapping, 16-frame batches), relocalisation, the
-command line with its dataset reader and map checkpoints, and bundle
-adjustment on the grid layout, in the System and at scale.
+command line with its dataset reader and map checkpoints, bundle
+adjustment on the grid layout, in the System and at scale, and the
+loop-closing solvers (Sim3 RANSAC and refinement, the essential graph).
 
     python3 chip_smoke.py
 
@@ -98,7 +99,29 @@ Phases (any failure raises and the script exits non-zero):
               same G, flat/dense and grid/cg on the card against the CPU
               (cost within BA_COST_AGREE), and the 256 KF x 16384 grid/cg
               case once; prints the {"ba": {...}} line
- 11. report   a JSON line of per-kernel numbers (with each kernel's share
+ 11. loop_solvers  the loop-closing solvers on the card against the same
+              calls on the CPU, at the loop closer's sizes: (a) sim3_ransac
+              over max_keypoints (1024) pair slots, LOOP_VALID_PAIRS valid
+              with LOOP_OUTLIER_FRACTION displaced, scale LOOP_SCALE, with
+              the loop closer's budget (pipeline/loop_closer.py:271-284,
+              rounded up to a power of two) of samples drawn once on the
+              CPU: the same ok, count and inlier mask, s / R / t within
+              LOOP_POSE_AGREE, near the ground truth; (b) optimize_sim3
+              (5 + 10 iterations) from (a)'s result: the same count, the
+              pose within LOOP_POSE_AGREE; (c) optimize_essential_graph at
+              max_keyframes (512) on the drifted ring of
+              tests/test_sim3_and_posegraph.py (odometry, strong-covisibility
+              and one loop edge), essential_graph_iters (20) iterations in
+              float32: the first cost within EG_COST0_AGREE, every cost
+              within EG_COST_AGREE of the first, translations within
+              EG_POSE_AGREE of the ring's radius, the error to ground truth
+              down by EG_ERROR_DROP; EG64_ITERS iterations in float64 on
+              both devices within EG64_AGREE; ms per iteration and the LU
+              solve's share of device time (utils/profiling.device_trace);
+              (d) correct_points over max_points (32768) points: card vs
+              CPU and S_new(X') = S_old(X) within POINTS_AGREE; prints the
+              {"loop_solvers": {...}} line
+ 12. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -169,6 +192,25 @@ N_BA_FRAMES = 60
 BA_INIT_WITHIN = 5
 BA_COST_AGREE = 1e-3          # relative: variants against flat/dense, card
                               # against the CPU
+# phase 11: the loop-closing solvers at the sizes the loop closer feeds them
+LOOP_VALID_PAIRS = 300        # matched pairs among max_keypoints slots
+LOOP_OUTLIER_FRACTION = 0.4
+LOOP_SCALE = 1.3
+LOOP_POSE_AGREE = 1e-4        # card vs CPU: s and t relative, R entries
+EG_COVIS = (2, 3)             # strong-covisibility edges to the k+2, k+3 KF
+EG_COST0_AGREE = 1e-5         # card vs CPU: the cost before any step
+# card vs CPU, float32: every cost / the first cost.  The first step from
+# the drifted start is ill-conditioned in float32: after it the cost gaps
+# were 1.05e-2 of the first cost card vs CPU, 6.3e-3 between two card runs
+# (index_add_'s atomics) and 5.1e-3 CPU float32 vs float64, then <= 1.1e-4
+EG_COST_AGREE = 3e-2
+EG_POSE_AGREE = 2e-4          # card vs CPU translations / the ring's radius
+                              # (measured 2.0e-5)
+EG64_ITERS = 5                # the float64 pair: costs and translations
+EG64_AGREE = 1e-9             # within this (measured 5.8e-12, 2.5e-14)
+EG_ERROR_DROP = 0.25          # error to ground truth, after / before
+POINTS_AGREE = 1e-5           # corrected points: card vs CPU, and the
+                              # invariant, over the points' largest coordinate
 
 
 def log(msg):
@@ -560,7 +602,10 @@ def main():
     # --- 10. ba -------------------------------------------------------------
     ba = ba_phase(dev, card, kernels, system)
 
-    # --- 11. report --------------------------------------------------------
+    # --- 11. loop solvers --------------------------------------------------
+    loop_solvers = loop_solvers_phase(dev, card)
+
+    # --- 12. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
@@ -568,6 +613,7 @@ def main():
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"ba": ba}), flush=True)
+    print(json.dumps({"loop_solvers": loop_solvers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -875,6 +921,322 @@ def ba_phase(dev, card, kernels, system_record):
         card_vs_cpu_cost_rel=cpu_rel, case_256kf_grid_cg=city,
         phase_s=time.perf_counter() - t_phase, card=card)
     log(f"  phase 10 took {record['phase_s']:.1f} s")
+    return record
+
+
+def loop_pair_scene(n_slots, rng):
+    """3D-3D pairs as the loop closer builds them over `n_slots` keypoint
+    slots: LOOP_VALID_PAIRS valid ones at random slots, landmarks 3-8 units
+    in front of KF2 mapped into KF1 through a Sim3 of scale LOOP_SCALE, 0.3
+    px pixel noise, each pair's octave drawn as a pyramid's keypoints are
+    (level l with weight 1.2^-2l) and its 9.21 sigma^2 gate, and
+    LOOP_OUTLIER_FRACTION of the valid pairs displaced by 1-3 units on the
+    KF2 side (wrong associations).  Returns numpy arrays and the ground
+    truth (s, R, t)."""
+    import torch
+    from orb_slam_tpu_torch.geometry import sim3
+    cam_cfg, kw = bench_configs()
+    K = np.asarray(cam_cfg.K, np.float32)
+    sigma2 = kw["ext_cfg"].sigma2
+    zeta = np.array([0.4, -0.2, 0.3, 0.05, -0.08, 0.03, np.log(LOOP_SCALE)],
+                    np.float32)
+    g = [x.numpy() for x in sim3.exp(torch.from_numpy(zeta))]
+    X2 = np.stack([rng.uniform(-2, 2, n_slots), rng.uniform(-1.5, 1.5, n_slots),
+                   rng.uniform(3, 8, n_slots)], 1).astype(np.float32)
+    X1 = (g[0] * X2 @ g[1].T + g[2]).astype(np.float32)
+
+    def project(X):
+        return np.stack([K[0, 0] * X[:, 0] / X[:, 2] + K[0, 2],
+                         K[1, 1] * X[:, 1] / X[:, 2] + K[1, 2]], 1)
+
+    uv1 = (project(X1) + rng.normal(0, 0.3, (n_slots, 2))).astype(np.float32)
+    uv2 = (project(X2) + rng.normal(0, 0.3, (n_slots, 2))).astype(np.float32)
+    w = 1.0 / sigma2
+    lv1 = rng.choice(len(sigma2), n_slots, p=w / w.sum())
+    lv2 = rng.choice(len(sigma2), n_slots, p=w / w.sum())
+    valid = np.zeros(n_slots, bool)
+    valid[rng.choice(n_slots, LOOP_VALID_PAIRS, replace=False)] = True
+    out = rng.choice(np.flatnonzero(valid),
+                     int(LOOP_OUTLIER_FRACTION * LOOP_VALID_PAIRS),
+                     replace=False)
+    X2[out] += rng.uniform(1, 3, (len(out), 3)).astype(np.float32)
+    is_out = np.zeros(n_slots, bool)
+    is_out[out] = True
+    args = [X1, X2, uv1, uv2, (9.21 * sigma2[lv1]).astype(np.float32),
+            (9.21 * sigma2[lv2]).astype(np.float32), valid, K]
+    return args, g, is_out
+
+
+def drifted_ring(n):
+    """The pose graph of tests/test_sim3_and_posegraph.py at n keyframes:
+    keyframes on a circle (0.3 units and 2 pi / n per step), the start
+    drifted by composing each odometry step with exp(N(0, 0.02^2) in all 7
+    dims) from a generator seeded 3; edges with ground-truth measurements
+    for odometry, strong covisibility to the keyframes EG_COVIS ahead and
+    one loop edge (n-1, 0).  Returns (ground truth, start, Sim3Edges) on
+    the CPU."""
+    import torch
+    from orb_slam_tpu_torch.geometry import se3, sim3
+    from orb_slam_tpu_torch.solvers import pose_graph as pg
+    rel = sim3.exp(torch.tensor([0.3, 0.0, 0.02, 0.0, 2 * np.pi / n, 0.0,
+                                 0.0], dtype=torch.float32))
+    noise = sim3.exp(torch.from_numpy(np.random.default_rng(3).normal(
+        0, 0.02, (n - 1, 7)).astype(np.float32)))
+    gt, start = [sim3.identity()], [sim3.identity()]
+    for k in range(1, n):
+        gt.append(sim3.compose(*rel, *gt[-1]))
+        step = sim3.compose(*[x[k - 1] for x in noise], *rel)
+        start.append(sim3.compose(*step, *start[-1]))
+    # rotations back onto SO(3): 511 float32 products drift ~1e-5 off it,
+    # and a keyframe's pose is kept orthonormal
+    gt, start = ([torch.stack(x) for x in zip(*g)] for g in (gt, start))
+    gt[1], start[1] = se3.orthonormalize(gt[1]), se3.orthonormalize(start[1])
+    pairs = [(k, k - d) for d in (1,) + EG_COVIS for k in range(d, n)]
+    pairs.append((n - 1, 0))
+    i = torch.tensor([a for a, _ in pairs])
+    j = torch.tensor([b for _, b in pairs])
+    meas = sim3.compose(*[x[i] for x in gt],
+                        *sim3.inverse(*[x[j] for x in gt]))
+    edges = pg.Sim3Edges(i, j, *meas, torch.ones(len(pairs),
+                                                 dtype=torch.bool))
+    return gt, start, edges
+
+
+def loop_solvers_phase(dev, card):
+    """Phase 11: the loop-closing solvers on `dev` against the same calls
+    on the CPU, at the loop closer's sizes.  Returns the {"loop_solvers":
+    ...} record; every check raises."""
+    import os
+    import tempfile
+    import torch
+    from orb_slam_tpu_torch.config import LoopConfig, MapConfig, SolverConfig
+    from orb_slam_tpu_torch.geometry import sim3
+    from orb_slam_tpu_torch.solvers import pnp, pose_graph as pg
+    from orb_slam_tpu_torch.solvers import sim3_opt, sim3_solver
+    from orb_slam_tpu_torch.utils.profiling import device_trace, top_ops
+    cam_cfg, kw = bench_configs()
+    n_slots = kw["ext_cfg"].max_keypoints
+    scfg, mcfg = SolverConfig(), MapConfig()
+    n_kf, n_points = mcfg.max_keyframes, mcfg.max_points
+    log(f"# phase 11: loop solvers, Sim3 RANSAC over {n_slots} pair slots, "
+        f"the essential graph at {n_kf} keyframes, {n_points} points")
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, reps=1):
+        fn()                                   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3 / reps
+
+    def apart(a, b, scale=1.0):
+        return float((a.cpu().double() - b.cpu().double()).abs().max()
+                     / scale)
+
+    # (a) Sim3 RANSAC with the loop closer's budget for this many pairs
+    args, g_gt, is_out = loop_pair_scene(n_slots, np.random.default_rng(SEED))
+    eps = min(1.0 - 1e-6, scfg.sim3_min_inliers / LOOP_VALID_PAIRS)
+    n_samp = int(np.ceil(np.log(max(1e-9, 1.0 - scfg.sim3_prob))
+                         / np.log(1.0 - eps ** 3)))
+    n_samp = max(32, min(n_samp, scfg.sim3_max_iters))
+    n_samp = 1 << (n_samp - 1).bit_length()
+    samples = pnp.draw_samples(torch.Generator().manual_seed(SEED),
+                               args[6], n_samp, 3)
+    # the inputs on each device before any timing
+    inputs = {d: [torch.from_numpy(a).to(d) for a in args]
+              + [torch.from_numpy(9.21 / a).to(d) for a in args[4:6]]
+              for d in (dev, cpu)}
+    min_inl = LoopConfig().min_sim3_inliers
+
+    def ransac(d):
+        return sim3_solver.sim3_ransac(*inputs[d][:8], samples=samples,
+                                       min_inliers=min_inl)
+
+    res, ransac_ms = timed(lambda: ransac(dev), reps=3)
+    ref, ransac_cpu_ms = timed(lambda: ransac(cpu))
+    same_mask = bool(torch.equal(res.inliers.cpu(), ref.inliers))
+    ransac_err = dict(s=apart(res.s, ref.s, float(ref.s)),
+                      R=apart(res.R, ref.R),
+                      t=apart(res.t, ref.t, float(ref.t.norm())))
+    check(bool(res.ok) == bool(ref.ok) and bool(res.ok)
+          and int(res.n_inliers) == int(ref.n_inliers) and same_mask,
+          f"sim3_ransac ({n_samp} samples, {LOOP_VALID_PAIRS} of {n_slots} "
+          f"pairs valid): card and CPU ok with {int(res.n_inliers)} inliers, "
+          f"the same inlier mask")
+    check(max(ransac_err.values()) <= LOOP_POSE_AGREE,
+          f"sim3_ransac card vs CPU: s {ransac_err['s']:.2e}, R "
+          f"{ransac_err['R']:.2e}, t {ransac_err['t']:.2e} "
+          f"(<= {LOOP_POSE_AGREE}); card {ransac_ms:.2f} ms, CPU "
+          f"{ransac_cpu_ms:.2f} ms")
+    dR = res.R.cpu().double() @ torch.from_numpy(g_gt[1]).double().T
+    ang = float(torch.rad2deg(torch.arccos(torch.clamp(
+        (torch.trace(dR) - 1) / 2, -1, 1))))
+    kept_out = float(res.inliers.cpu().numpy()[is_out].mean())
+    check(abs(float(res.s) / float(g_gt[0]) - 1) < 0.02 and ang < 0.5
+          and kept_out < 0.1,
+          f"sim3_ransac near the truth: s {float(res.s):.4f} (truth "
+          f"{float(g_gt[0]):.4f}), rotation {ang:.3f} deg, {kept_out:.3f} of "
+          f"the outliers kept")
+
+    # (b) the refinement from (a)'s result, 5 + 10 iterations, with each
+    # pair's information 1 / sigma^2 of its octave
+    start_g = {d: [x.to(d) for x in (res.s, res.R, res.t, res.inliers)]
+               for d in (dev, cpu)}
+
+    def refine(d):
+        s0, R0, t0, inl = start_g[d]
+        x = inputs[d]
+        return sim3_opt.optimize_sim3(
+            s0, R0, t0, *x[:4], x[8], x[9], inl, x[7],
+            chi2_th=scfg.sim3_chi2, iters1=scfg.sim3_iters1,
+            iters2=scfg.sim3_iters2)
+
+    opt, opt_ms = timed(lambda: refine(dev))
+    opt_ref, opt_cpu_ms = timed(lambda: refine(cpu))
+    opt_err = dict(s=apart(opt.s, opt_ref.s, float(opt_ref.s)),
+                   R=apart(opt.R, opt_ref.R),
+                   t=apart(opt.t, opt_ref.t, float(opt_ref.t.norm())))
+    check(int(opt.n_inliers) == int(opt_ref.n_inliers)
+          and int(opt.n_inliers) >= min_inl
+          and max(opt_err.values()) <= LOOP_POSE_AGREE,
+          f"optimize_sim3 ({scfg.sim3_iters1} + {scfg.sim3_iters2} "
+          f"iterations): {int(opt.n_inliers)} inliers on both, card vs CPU "
+          f"s {opt_err['s']:.2e}, R {opt_err['R']:.2e}, t "
+          f"{opt_err['t']:.2e} (<= {LOOP_POSE_AGREE}); card {opt_ms:.2f} ms, "
+          f"CPU {opt_cpu_ms:.2f} ms")
+
+    # (c) the essential graph at max_keyframes, in float32 as the loop
+    # closer runs it; and a few iterations in float64 on both devices, which
+    # separates the algorithm's agreement from float32's conditioning
+    gt, start, edges = drifted_ring(n_kf)
+    fixed = torch.arange(n_kf) == 0
+    n_it = scfg.essential_graph_iters
+    radius = 0.3 / (2 * np.sin(np.pi / n_kf))
+
+    def graph(d, n_iters=n_it, dtype=torch.float32):
+        def put(x):
+            return x.to(d, dtype) if x.is_floating_point() else x.to(d)
+        return pg.optimize_essential_graph(
+            *[put(x) for x in start], put(fixed),
+            pg.Sim3Edges(*[put(x) for x in edges]), n_iters=n_iters)
+
+    def traj_err(a, b):
+        """(largest cost gap / the first cost, first cost's relative gap,
+        largest translation gap / the ring's radius) of two runs."""
+        ca, cb = a[3].cpu().double(), b[3].cpu().double()
+        return (float((ca - cb).abs().max() / cb[0]),
+                abs(float(ca[0] / cb[0]) - 1), apart(a[2], b[2], radius))
+
+    graph(dev, 1)
+    sync()
+    t0 = time.perf_counter()
+    eg = graph(dev)
+    sync()
+    eg_ms = (time.perf_counter() - t0) * 1e3 / n_it
+    t0 = time.perf_counter()
+    eg_ref = graph(cpu)
+    eg_cpu_ms = (time.perf_counter() - t0) * 1e3 / n_it
+    cost_err, cost0_err, pose_err = traj_err(eg, eg_ref)
+    costs = eg[3].cpu().double()
+    e0 = float((start[2] - gt[2]).norm(dim=1).sum())
+    e1 = float((eg[2].cpu() - gt[2]).norm(dim=1).sum())
+    check(torch.isfinite(costs).all() and cost0_err <= EG_COST0_AGREE
+          and cost_err <= EG_COST_AGREE,
+          f"essential graph, {n_kf} KF, {len(edges.i)} edges, {n_it} "
+          f"iterations: costs {float(costs[0]):.4g} -> {float(costs[-1]):.4g}; "
+          f"card vs CPU: first cost {cost0_err:.2e} (<= {EG_COST0_AGREE}), "
+          f"every cost within {cost_err:.2e} of the first (<= "
+          f"{EG_COST_AGREE})")
+    check(pose_err <= EG_POSE_AGREE and e1 < EG_ERROR_DROP * e0,
+          f"essential graph: translations card vs CPU within {pose_err:.2e} "
+          f"of the ring's radius (<= {EG_POSE_AGREE}); error to ground truth "
+          f"{e0:.1f} -> {e1:.3f} (< {EG_ERROR_DROP}x)")
+    err64 = traj_err(graph(dev, EG64_ITERS, torch.float64),
+                     graph(cpu, EG64_ITERS, torch.float64))
+    check(max(err64) <= EG64_AGREE,
+          f"essential graph in float64, {EG64_ITERS} iterations: card vs CPU "
+          f"costs within {err64[0]:.2e} of the first, translations within "
+          f"{err64[2]:.2e} of the radius (<= {EG64_AGREE})")
+    with tempfile.TemporaryDirectory() as tdir:
+        with device_trace(os.path.join(tdir, "graph"), device=dev):
+            graph(dev)
+        ops = top_ops(os.path.join(tdir, "graph"))
+        H, b, _ = pg._normal_equations(
+            *[x.to(dev) for x in start], fixed.to(dev),
+            pg.Sim3Edges(*[x.to(dev) for x in edges]))
+        with device_trace(os.path.join(tdir, "solve"), device=dev):
+            for _ in range(n_it):
+                torch.linalg.solve_ex(H, b, check_errors=False)
+        solve_ops = top_ops(os.path.join(tdir, "solve"))
+    dev_ms = sum(ms for ms, _ in ops) / n_it
+    solve_ms = sum(ms for ms, _ in solve_ops) / n_it
+    check(0 < solve_ms < dev_ms,
+          f"essential graph: {eg_ms:.2f} ms per iteration on the card "
+          f"({eg_cpu_ms:.1f} on the CPU); device time {dev_ms:.2f} ms per "
+          f"iteration, the {7 * n_kf}^2 LU solve {solve_ms:.2f} ms of it "
+          f"({solve_ms / dev_ms:.1%}); top ops "
+          f"{[(round(ms / n_it, 3), name[:50]) for ms, name in ops[:5]]}")
+
+    # (d) the landmark correction over max_points points
+    rng = np.random.default_rng(SEED)
+    ref_kf = torch.from_numpy(rng.integers(0, n_kf, n_points))
+    Xc = torch.from_numpy(rng.normal(0, 1, (n_points, 3)).astype(np.float32)
+                          + np.array([0, 0, 5], np.float32))
+    # world points seen by their reference keyframe at the start
+    P = sim3.transform(*sim3.inverse(*[x[ref_kf] for x in start]), Xc)
+    new_card = eg[:3]
+    card_in = [x.to(dev) for x in (P, ref_kf, *start)]
+    pts, pts_ms = timed(lambda: pg.correct_points(*card_in, *new_card),
+                        reps=3)
+    pts_ref = pg.correct_points(P, ref_kf, *start,
+                                *[x.cpu() for x in new_card])
+    scale = float(pts_ref.abs().max())
+    pts_err = apart(pts, pts_ref, scale)
+    back = sim3.transform(*[x[card_in[1]] for x in new_card], pts)
+    inv_err = apart(back, Xc, scale)
+    check(pts_err <= POINTS_AGREE and inv_err <= POINTS_AGREE,
+          f"correct_points, {n_points} points through {n_kf} keyframes: card "
+          f"vs CPU within {pts_err:.2e} and S_new(X') = S_old(X) within "
+          f"{inv_err:.2e} of the point scale (<= {POINTS_AGREE}); "
+          f"{pts_ms:.3f} ms")
+
+    record = dict(
+        ransac=dict(slots=n_slots, valid=LOOP_VALID_PAIRS,
+                    outlier_fraction=LOOP_OUTLIER_FRACTION,
+                    n_samples=n_samp, n_inliers=int(res.n_inliers),
+                    card_vs_cpu=ransac_err, same_inlier_mask=same_mask,
+                    rot_err_deg=ang, ms=ransac_ms, cpu_ms=ransac_cpu_ms),
+        sim3_opt=dict(iters=[scfg.sim3_iters1, scfg.sim3_iters2],
+                      n_inliers=int(opt.n_inliers), card_vs_cpu=opt_err,
+                      ms=opt_ms, cpu_ms=opt_cpu_ms),
+        essential_graph=dict(
+            keyframes=n_kf, edges=len(edges.i), iters=n_it,
+            costs=costs.tolist(), costs_cpu=eg_ref[3].double().tolist(),
+            cost_err_of_first=cost_err, first_cost_err=cost0_err,
+            translation_err_of_radius=pose_err,
+            float64_iters=EG64_ITERS, float64_errs=err64,
+            gt_error_before=e0, gt_error_after=e1,
+            ms_per_iter=eg_ms, cpu_ms_per_iter=eg_cpu_ms,
+            device_ms_per_iter=dev_ms, solve_ms=solve_ms,
+            solve_share=solve_ms / dev_ms,
+            top_ops=[(ms / n_it, name[:80]) for ms, name in ops[:8]],
+            solve_ops=[(ms / n_it, name[:80]) for ms, name in solve_ops[:4]]),
+        correct_points=dict(points=n_points, keyframes=n_kf,
+                            err_of_scale=pts_err, inverse_err=inv_err,
+                            ms=pts_ms),
+        tolerances=dict(pose=LOOP_POSE_AGREE, eg_cost0=EG_COST0_AGREE,
+                        eg_cost=EG_COST_AGREE, eg_pose=EG_POSE_AGREE,
+                        eg64=EG64_AGREE, eg_drop=EG_ERROR_DROP,
+                        points=POINTS_AGREE),
+        phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"  phase 11 took {record['phase_s']:.1f} s")
     return record
 
 

@@ -142,8 +142,9 @@ class LoopCloser:
     def process_keyframe(self, smap: mapstore.SlamMap, kf: int) -> dict:
         """Add the keyframe to the database and run loop detection.
         Consistent candidates are reported (``loop_candidates``, and
-        ``loop_unchecked``: the geometric check and the correction are not
-        ported yet)."""
+        ``loop_unchecked``: the solvers of the geometric check and the
+        correction exist (``solvers/{sim3_solver,sim3_opt,pose_graph}``),
+        but their wiring into the loop closer is the next slice)."""
         metrics = {}
         if self.voc is None:
             return metrics

@@ -60,6 +60,9 @@ def test_import_leaves_jax_out():
             "orb_slam_tpu_torch.utils.viz, "
             "orb_slam_tpu_torch.utils.profiling, "
             "orb_slam_tpu_torch.solvers.bundle_adjust, "
+            "orb_slam_tpu_torch.solvers.sim3_solver, "
+            "orb_slam_tpu_torch.solvers.sim3_opt, "
+            "orb_slam_tpu_torch.solvers.pose_graph, "
             "orb_slam_tpu_torch.entry, "
             "orb_slam_tpu_torch.native, orb_slam_tpu_torch.state, "
             "smoke_world, chip_smoke; "
