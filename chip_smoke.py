@@ -3,8 +3,9 @@
 per-frame tracking step, the synchronous System path, the bench
 configuration (async mapping, 16-frame batches), relocalisation, the
 command line with its dataset reader and map checkpoints, bundle
-adjustment on the grid layout, in the System and at scale, and the
-loop-closing solvers (Sim3 RANSAC and refinement, the essential graph).
+adjustment on the grid layout, in the System and at scale, the
+loop-closing solvers (Sim3 RANSAC and refinement, the essential graph) and
+the loop closer's geometric check of loop candidates.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,23 @@ Phases (any failure raises and the script exits non-zero):
               (d) correct_points over max_points (32768) points: card vs
               CPU and S_new(X') = S_old(X) within POINTS_AGREE; prints the
               {"loop_solvers": {...}} line
- 12. report   a JSON line of per-kernel numbers (with each kernel's share
+ 12. loop_check  the loop closer's geometric check (LoopCloser._compute_sim3)
+              on the card against the same check on the CPU, at full width:
+              smoke_world.revisit_map with 1024 slots per keyframe in the
+              default MapConfig (512 keyframes, 32768 points, 8192-point
+              guided window), keyframe 13 re-observing ~300 landmarks of
+              keyframe 3 through a drift Sim3 (scale 1.3) with
+              LOOP_OUTLIER_FRACTION displaced, and one decoy per gate
+              (matches, RANSAC, refined inliers, guided matches); the draws
+              come from one CPU generator and are replayed on the CPU: each
+              candidate stops at its designed gate on both devices with the
+              same pairs, ok, inlier masks and counts and guided count, both
+              accept keyframe 3, g12 within LOOP_CHECK_AGREE of the CPU's
+              and LOOP_TRUTH of the drift; ms per candidate by stage (card
+              and CPU), host syncs per candidate (sync debug mode), and
+              process_keyframe on keyframe 13 after 0-12 (loop_with 3, no
+              correction); prints the {"loop_check": {...}} line
+ 13. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -211,6 +228,20 @@ EG64_AGREE = 1e-9             # within this (measured 5.8e-12, 2.5e-14)
 EG_ERROR_DROP = 0.25          # error to ground truth, after / before
 POINTS_AGREE = 1e-5           # corrected points: card vs CPU, and the
                               # invariant, over the points' largest coordinate
+# phase 12: the loop closer's geometric check on a scripted revisit
+LOOP_SCENE_A = 500            # scene A's landmarks: ~300 pairs at 1024 slots
+LOOP_SCENE_B = 800
+# card vs CPU, g12 of the accepted candidate: s relative, R entries, t over
+# the norm of the drift's translation (phase 11 measured <= 7.3e-7 on the
+# refinement's s and R, 4.65e-6 on RANSAC's t)
+LOOP_CHECK_AGREE = dict(s=1e-6, R=1e-6, t=1e-5)
+# the recovered g12 against the scripted drift: scale relative, rotation
+# in degrees, translation in map units (the pairs lie 5-9 units deep)
+LOOP_TRUTH = dict(s=0.01, deg=0.5, t=0.03)
+LOOP_GATES = dict(matches=("match",), ransac=("match", "ransac"),
+                  refine=("match", "ransac", "refine"),
+                  guided=("match", "ransac", "refine", "guided"),
+                  verified=("match", "ransac", "refine", "guided"))
 
 
 def log(msg):
@@ -605,7 +636,10 @@ def main():
     # --- 11. loop solvers --------------------------------------------------
     loop_solvers = loop_solvers_phase(dev, card)
 
-    # --- 12. report --------------------------------------------------------
+    # --- 12. loop check ---------------------------------------------------
+    loop_check = loop_check_phase(dev, card)
+
+    # --- 13. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
@@ -614,6 +648,7 @@ def main():
     print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"ba": ba}), flush=True)
     print(json.dumps({"loop_solvers": loop_solvers}), flush=True)
+    print(json.dumps({"loop_check": loop_check}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1011,6 +1046,7 @@ def loop_solvers_phase(dev, card):
     import torch
     from orb_slam_tpu_torch.config import LoopConfig, MapConfig, SolverConfig
     from orb_slam_tpu_torch.geometry import sim3
+    from orb_slam_tpu_torch.pipeline.loop_closer import ransac_budget
     from orb_slam_tpu_torch.solvers import pnp, pose_graph as pg
     from orb_slam_tpu_torch.solvers import sim3_opt, sim3_solver
     from orb_slam_tpu_torch.utils.profiling import device_trace, top_ops
@@ -1042,11 +1078,7 @@ def loop_solvers_phase(dev, card):
 
     # (a) Sim3 RANSAC with the loop closer's budget for this many pairs
     args, g_gt, is_out = loop_pair_scene(n_slots, np.random.default_rng(SEED))
-    eps = min(1.0 - 1e-6, scfg.sim3_min_inliers / LOOP_VALID_PAIRS)
-    n_samp = int(np.ceil(np.log(max(1e-9, 1.0 - scfg.sim3_prob))
-                         / np.log(1.0 - eps ** 3)))
-    n_samp = max(32, min(n_samp, scfg.sim3_max_iters))
-    n_samp = 1 << (n_samp - 1).bit_length()
+    n_samp = ransac_budget(scfg, LOOP_VALID_PAIRS)
     samples = pnp.draw_samples(torch.Generator().manual_seed(SEED),
                                args[6], n_samp, 3)
     # the inputs on each device before any timing
@@ -1237,6 +1269,238 @@ def loop_solvers_phase(dev, card):
                         points=POINTS_AGREE),
         phase_s=time.perf_counter() - t_phase, card=card)
     log(f"  phase 11 took {record['phase_s']:.1f} s")
+    return record
+
+
+def revisit_slam_map(cfg, world, device):
+    """smoke_world.revisit_map's rows written into a SlamMap on `device`
+    (every point first, then the 14 keyframes in order)."""
+    from orb_slam_tpu_torch.mapping import mapstore
+    smap = mapstore.SlamMap.create(cfg.map, cfg.extractor.max_keypoints,
+                                   device=device)
+    p = world["points"]
+    m = len(p["pos"])
+    smap.add_points(p["pos"], p["desc"].view(np.int32),
+                    np.zeros((m, 3), np.float32), np.zeros(m, np.float32),
+                    np.full(m, np.inf, np.float32), 0, np.ones(m, bool))
+    for k, a in enumerate(world["kfs"]):
+        smap.add_keyframe(a["R"], a["t"], a["xy"], a["level"], a["angle"],
+                          a["desc"].view(np.int32), a["kp_valid"], a["obs"],
+                          k, k / 30.0, parent=k - 1)
+    return smap
+
+
+def staged_check(lc, smap, kf, cands):
+    """LoopCloser._compute_sim3 with each stage of each candidate timed on
+    the host's clock between synchronizations of the map's device: returns
+    (hit, stages) with stages [(stage, result, ms)] in call order (match:
+    the LoopPairs or None; ransac / refine: the solver's result; guided:
+    the count)."""
+    import torch
+    from orb_slam_tpu_torch.solvers import sim3_opt, sim3_solver
+    dev = smap.device
+    stages = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(stage, fn):
+        def call(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            stages.append((stage, out, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    ransac, refine = sim3_solver.sim3_ransac, sim3_opt.optimize_sim3
+    lc._loop_pairs = timed("match", lc._loop_pairs)
+    lc._count_guided_matches = timed("guided", lc._count_guided_matches)
+    sim3_solver.sim3_ransac = timed("ransac", ransac)
+    sim3_opt.optimize_sim3 = timed("refine", refine)
+    try:
+        hit = lc._compute_sim3(smap, kf, cands)
+    finally:
+        del lc._loop_pairs, lc._count_guided_matches
+        sim3_solver.sim3_ransac, sim3_opt.optimize_sim3 = ransac, refine
+    return hit, stages
+
+
+def per_candidate(stages):
+    """Split a staged_check's stages into one list per candidate (each
+    candidate's stages start at its match)."""
+    out = []
+    for st in stages:
+        if st[0] == "match":
+            out.append([])
+        out[-1].append(st)
+    return out
+
+
+def loop_check_phase(dev, card):
+    """Phase 12: the loop closer's geometric check on `dev` against the
+    same check on the CPU, on smoke_world.revisit_map at full width.
+    Returns the {"loop_check": ...} record; every check raises."""
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch.geometry.camera import make_camera
+    from orb_slam_tpu_torch.pipeline import loop_closer as lcm
+    from orb_slam_tpu_torch.solvers import pnp
+    cfg = system_config()
+    n_slots = cfg.extractor.max_keypoints
+    log(f"# phase 12: loop check at {n_slots} slots, a "
+        f"{cfg.map.max_keyframes}-keyframe / {cfg.map.max_points}-point "
+        f"pool; {card}")
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    world = syn.revisit_map(np.random.default_rng(SEED), n_slots,
+                            LOOP_SCENE_A, LOOP_SCENE_B, cfg.camera.K,
+                            outlier_fraction=LOOP_OUTLIER_FRACTION)
+    q, match = syn.REVISIT_QUERY, syn.REVISIT_MATCH
+    cands = {**syn.REVISIT_DECOYS, "verified": match}
+    order = list(LOOP_GATES)
+    cand_list = [cands[n] for n in order]
+    maps = {d: revisit_slam_map(cfg, world, d) for d in (dev, cpu)}
+    cams = {d: make_camera(cfg.camera, device=d) for d in (dev, cpu)}
+
+    def closer(d, sampler=None):
+        lc = lcm.LoopCloser(cfg=cfg, cam=cams[d])
+        lc.sim3_sampler = sampler
+        return lc
+
+    # warm-up (cuBLAS / cuSOLVER handles, the caching allocator), then the
+    # timed run with draws from one CPU generator, replayed on the CPU
+    closer(dev)._compute_sim3(maps[dev], q, cand_list)
+    gen = torch.Generator().manual_seed(SEED)
+    drawn = []
+
+    def draw(valid, n):
+        drawn.append(pnp.draw_samples(gen, valid, n, 3))
+        return drawn[-1]
+
+    replay = iter(drawn)
+    hit, stages = staged_check(closer(dev, draw), maps[dev], q, cand_list)
+    hit_c, stages_c = staged_check(
+        closer(cpu, lambda valid, n: next(replay)), maps[cpu], q, cand_list)
+    by_cand, by_cand_c = per_candidate(stages), per_candidate(stages_c)
+    check(len(by_cand) == len(by_cand_c) == len(order),
+          f"every candidate checked on both devices ({len(by_cand)}, "
+          f"{len(by_cand_c)} of {len(order)})")
+    rows = {}
+    for name, got, ref in zip(order, by_cand, by_cand_c):
+        gates = tuple(st[0] for st in got)
+        check(gates == tuple(st[0] for st in ref) == LOOP_GATES[name],
+              f"candidate {cands[name]} ({name}): stages {gates} on both "
+              f"devices, as designed {LOOP_GATES[name]}")
+        row = dict(kf=cands[name], stages=list(gates),
+                   ms={st[0]: st[2] for st in got},
+                   cpu_ms={st[0]: st[2] for st in ref})
+        for (stage, a, _), (_, b, _) in zip(got, ref):
+            if stage == "match":
+                same = (a is None) == (b is None) and (
+                    a is None or np.array_equal(a.valid_np, b.valid_np))
+                row["pairs"] = None if a is None else int(a.valid_np.sum())
+            elif stage == "guided":
+                same = a == b
+                row["n_total"] = a
+            else:
+                same = (int(a.n_inliers) == int(b.n_inliers) and torch.equal(
+                    a.inliers.cpu(), b.inliers))
+                if stage == "ransac":
+                    same &= bool(a.ok) == bool(b.ok)
+                    row["ransac_ok"] = bool(a.ok)
+                row[f"{stage}_inliers"] = int(a.n_inliers)
+            check(same, f"candidate {cands[name]} ({name}) {stage}: card and "
+                  f"CPU agree (pairs, ok, inlier masks and counts, guided "
+                  f"count)")
+        rows[name] = row
+    check(hit is not None and hit_c is not None and hit[0] == hit_c[0]
+          == match, f"both devices accept keyframe {match} "
+          f"(card {None if hit is None else hit[0]}, CPU "
+          f"{None if hit_c is None else hit_c[0]})")
+    s, R, t = (x.cpu().double() for x in hit[1])
+    sc, Rc, tc = (x.double() for x in hit_c[1])
+    s0, R0, t0 = (torch.from_numpy(np.asarray(x, np.float64))
+                  for x in world["g12"])
+    gap = dict(s=float(abs(s / sc - 1)), R=float((R - Rc).abs().max()),
+               t=float((t - tc).abs().max() / t0.norm()))
+    check(all(gap[k] <= LOOP_CHECK_AGREE[k] for k in gap),
+          f"g12 card vs CPU: s {gap['s']:.2e}, R {gap['R']:.2e}, t "
+          f"{gap['t']:.2e} of the drift's translation (<= "
+          f"{LOOP_CHECK_AGREE})")
+    # the angle of R R0^T from its chord (stable for small angles)
+    ang = float(torch.rad2deg(2 * torch.asin(torch.clamp(
+        torch.linalg.norm(R - R0) / 8 ** 0.5, max=1.0))))
+    truth = dict(s=float(abs(s / s0 - 1)), deg=ang,
+                 t=float((t - t0).norm()))
+    check(all(truth[k] <= LOOP_TRUTH[k] for k in truth),
+          f"g12 against the scripted drift (scale {float(s0):.2f}, "
+          f"|t| {float(t0.norm()):.3f}): scale {truth['s']:.2e}, rotation "
+          f"{ang:.4f} deg, translation {truth['t']:.4f} (<= {LOOP_TRUTH})")
+    v = rows["verified"]
+    check(v["pairs"] >= 250 and v["n_total"] >= cfg.loop.min_total_matches,
+          f"the verified candidate: {v['pairs']} pairs, "
+          f"{v['ransac_inliers']} RANSAC and {v['refine_inliers']} refined "
+          f"inliers, {v['n_total']} guided matches")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # host syncs: a fresh check under torch's sync debug mode
+    sync()
+    with ThreadWarnings() as sync_w:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            closer(dev)._compute_sim3(maps[dev], q, cand_list)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    # the port's own: the debug mode's switch may warn from this file
+    syncs = sum(n for site, n in sync_w.sites.items()
+                if site.startswith("orb_slam_tpu_torch"))
+
+    # process_keyframe on the verified revisit: database, detection and
+    # the check of keyframe 13 after 0-12
+    lc = closer(dev)
+    lc.ensure_vocabulary(None)
+    for k in range(q):
+        lc.process_keyframe(maps[dev], k)
+    sync()
+    t0_ = time.perf_counter()
+    m = lc.process_keyframe(maps[dev], q)
+    sync()
+    pk_ms = (time.perf_counter() - t0_) * 1e3
+    check(m.get("loop_with") == match and "loop_closed" not in m
+          and lc.last_loop_kf < 0 and lc.n_loops_closed == 0,
+          f"process_keyframe({q}) reports loop_with {m.get('loop_with')} "
+          f"({m.get('loop_candidates')} candidates) in {pk_ms:.1f} ms and "
+          f"corrects nothing")
+    for name in order:
+        r = rows[name]
+        log(f"  {name:8s} kf {r['kf']}: stages {r['stages']}, card ms "
+            f"{ {k: round(x, 3) for k, x in r['ms'].items()} }, CPU ms "
+            f"{ {k: round(x, 3) for k, x in r['cpu_ms'].items()} }")
+    record = dict(
+        slots=n_slots, pool=[cfg.map.max_keyframes, cfg.map.max_points],
+        local_ba_max_points=cfg.map.local_ba_max_points,
+        candidates=rows, accepted=hit[0],
+        card_vs_cpu=gap, against_truth=truth,
+        budgets=[len(x) for x in drawn],
+        host_syncs=syncs, host_syncs_per_candidate=syncs / len(order),
+        sync_sites=sync_w.sites,
+        check_ms=sum(st[2] for st in stages),
+        check_cpu_ms=sum(st[2] for st in stages_c),
+        process_keyframe_ms=pk_ms,
+        tolerances=dict(card_vs_cpu=LOOP_CHECK_AGREE, truth=LOOP_TRUTH),
+        phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"  {syncs} host syncs for {len(order)} candidates, sites "
+        f"{sync_w.sites}; the check {record['check_ms']:.1f} ms on the card "
+        f"({record['check_cpu_ms']:.1f} on the CPU); phase 12 took "
+        f"{record['phase_s']:.1f} s")
     return record
 
 
@@ -1531,7 +1795,7 @@ def bench_phase(dev, card, kernels, system_record):
             tr.slam_map.kf_valid_np.sum()),
         map_points=int(tr.slam_map.mp_valid_np.sum()),
         launches=launches, place_recognition=True, loop_closing=None,
-        loop_unchecked=unchecked_loops(logs), card=card)
+        loop_verified=verified_loops(logs), card=card)
     log(f"  fps {record['fps_after_init']:.3f}; latency "
         f"{record['pose_latency_ms']}; tracking ms/frame "
         f"{record['tracking_ms_per_frame']}; commits {record['commit_ms']}; "
@@ -1749,7 +2013,7 @@ def reloc_phase(dev, card, kernels):
             "mapping/loopClosing", 0.0) * 1e3 / max(n_lc, 1),
         worker_place_recognition_passes=n_lc,
         worker_keyframes_added=worker_adds[0], database_rows=len(lc.db),
-        loop_unchecked=unchecked_loops(logs),
+        loop_verified=verified_loops(logs),
         tracked_fraction_after_reloc=frac, ate_after_reloc_m=ate,
         path_span_after_reloc_m=span, ate_span_fraction=ate / span,
         run_s=run_s, pnp_card_vs_cpu=pnp_check, launches=launches,
@@ -2237,11 +2501,11 @@ def pnp_card_vs_cpu(call, cam, solver_cfg):
                 card_ms=card_ms, cpu_ms=cpu_ms)
 
 
-def unchecked_loops(logs):
-    """Keyframes whose loop detection returned consistent candidates that
-    the port does not check yet (loop closing stops at detection)."""
-    return sum(bool(m.get("mapping", {}).get("loop_unchecked"))
-               + bool(m.get("loop_unchecked")) for m in logs)
+def verified_loops(logs):
+    """Keyframes whose loop check verified a candidate (``loop_with``; the
+    port does not correct a loop yet)."""
+    return sum(("loop_with" in m.get("mapping", {})) + ("loop_with" in m)
+               for m in logs)
 
 
 def check_mirrors(smap):

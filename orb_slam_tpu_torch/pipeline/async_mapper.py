@@ -32,9 +32,10 @@ Where the port differs:
     caching allocator does not hand their memory out while the other
     stream may still use it.
   * The worker's stage timer waits for its own stream only.
-  * Loop closing stops at detection (``pipeline/loop_closer.py``): the
-    worker adds the keyframe to the place-recognition database and reports
-    consistent loop candidates, unchecked.
+  * Loop closing stops before the correction (``pipeline/loop_closer.py``):
+    the worker adds the keyframe to the place-recognition database, checks
+    the consistent loop candidates and reports a verified loop
+    (``loop_with``) without correcting the map.
 
 The LoopCloser is not part of the snapshot: the worker and the tracker
 share one, as in the JAX package.  That is safe because there is one

@@ -1,38 +1,82 @@
-"""Place recognition at keyframe rate (port of the detection half of
-``orb_slam_tpu.pipeline.loop_closer``).
+"""Loop detection and the geometric check of loop candidates at keyframe
+rate (port of ``orb_slam_tpu.pipeline.loop_closer`` up to ComputeSim3).
 
 The LoopClosing thread of the reference (src/LoopClosing.cc) per new
 keyframe:
   1. DetectLoop (:99-229): BoW candidates gated by a minimum score against
      the covisible neighbourhood and by covisibility consistency across 3
      consecutive keyframes;
-  2. ComputeSim3 (:231-406) and 3. CorrectLoop (:408-570).
+  2. ComputeSim3 (:231-406): descriptor matching against each candidate's
+     landmarks, Sim3 RANSAC and refinement, acceptance by inlier and
+     total-match counts;
+  3. CorrectLoop (:408-570).
 
-This slice ports step 1 and the state it keeps: the vocabulary, the
-keyframe database, one BoW row per keyframe, the consistent groups.
-Steps 2-3 (Sim3 RANSAC, the essential-graph optimization, loop fusion)
-come with the loop-closing slice: where detection returns candidates,
-``process_keyframe`` stops and reports them as ``loop_unchecked``.  The
-tracker's relocalisation reads the same vocabulary and database.
+This module ports steps 1 and 2 and the state they keep: the vocabulary,
+the keyframe database, one BoW row per keyframe, the consistent groups and
+the CPU generator of the Sim3 RANSAC draws.  A verified loop is reported
+(``loop_with``) and not yet corrected: step 3 (the essential-graph
+optimization, landmark re-mapping, loop fusion) is not ported, so
+``process_keyframe`` sets neither ``loop_closed`` nor ``last_loop_kf`` nor
+``n_loops_closed``.  The tracker's relocalisation reads the same
+vocabulary and database.
 
-Everything here is host numpy: the BoW transform reads the keyframe rows'
-host mirrors, covisibility comes from the observation mirror through the
-compiled graph ops, so a keyframe costs no device read here.
+Detection is host numpy: the BoW transform reads the keyframe rows' host
+mirrors, covisibility comes from the observation mirror through the
+compiled graph ops, so it costs no device read.  The check runs on the
+map's device; per checked candidate it reads the card four times at most
+(the match indices, RANSAC's ``ok``, the refined inlier count, the guided
+match count), and RANSAC's CUDA SVD waits for the card at its own status
+checks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from .. import native
-from ..config import SystemConfig
+from ..config import SolverConfig, SystemConfig
+from ..device import true_fp32, upload
+from ..geometry import se3, sim3
 from ..geometry.camera import CameraParams
 from ..mapping import mapstore
+from ..ops import match as match_ops
 from ..place import database as db_mod
 from ..place import vocabulary as voc_mod
+from ..solvers import pnp, sim3_opt, sim3_solver
 from ..utils.timing import GLOBAL_TIMER as _timer
+
+# the JAX loop closer's key is PRNGKey(7) (loop_closer.py:96)
+SIM3_SEED = 7
+
+
+def ransac_budget(scfg: SolverConfig, n_pairs: int) -> int:
+    """Sim3 RANSAC hypotheses for n_pairs matched pairs: the adaptive count
+    the reference seeds with SetRansacParameters(0.99, 20, 300)
+    (Sim3Solver.cc:59-83), eps = min_inliers / N and iters = log(1 - p) /
+    log(1 - eps^3), capped at sim3_max_iters with a floor of 32, then
+    rounded up to a power of two as the JAX package does
+    (loop_closer.py:284, where it bounds recompiles)."""
+    eps = min(1.0 - 1e-6, scfg.sim3_min_inliers / max(n_pairs, 1))
+    n = int(np.ceil(np.log(max(1e-9, 1.0 - scfg.sim3_prob))
+                    / np.log(1.0 - eps ** 3)))
+    n = max(32, min(n, scfg.sim3_max_iters))
+    return 1 << (n - 1).bit_length()
+
+
+class LoopPairs(NamedTuple):
+    """The 3D-3D pairs of a keyframe against a loop candidate, one row per
+    slot of the keyframe, on the map's device."""
+    X1: torch.Tensor        # [N, 3] landmark in the keyframe's camera frame
+    X2: torch.Tensor        # [N, 3] matched landmark in the candidate's
+    uv1: torch.Tensor       # [N, 2] keypoint pixels in the keyframe
+    uv2: torch.Tensor       # [N, 2] matched keypoint pixels in the candidate
+    max_err1: torch.Tensor  # [N] 9.21 sigma^2 of the keypoint's octave
+    max_err2: torch.Tensor  # [N]
+    valid: torch.Tensor     # [N] bool
+    valid_np: np.ndarray    # [N] bool, the same on the host
 
 
 @dataclass
@@ -45,6 +89,13 @@ class LoopCloser:
     last_loop_kf: int = -(10 ** 9)
     consistent_groups: List = field(default_factory=list)
     n_loops_closed: int = 0
+    # Sim3 RANSAC minimal sets: drawn from this CPU generator, unless
+    # sim3_sampler is set: sim3_sampler(valid [N] bool numpy, n_samples) ->
+    # [n_samples, 3] indices.  One draw per candidate that reaches RANSAC,
+    # where the JAX loop closer splits its key
+    generator: torch.Generator = field(
+        default_factory=lambda: torch.Generator().manual_seed(SIM3_SEED))
+    sim3_sampler: Optional[Callable] = None
 
     def remap_keyframes(self, lut: np.ndarray):
         """Apply a keyframe-pool compaction LUT (old id -> new id, -1 =
@@ -140,11 +191,12 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
     def process_keyframe(self, smap: mapstore.SlamMap, kf: int) -> dict:
-        """Add the keyframe to the database and run loop detection.
-        Consistent candidates are reported (``loop_candidates``, and
-        ``loop_unchecked``: the solvers of the geometric check and the
-        correction exist (``solvers/{sim3_solver,sim3_opt,pose_graph}``),
-        but their wiring into the loop closer is the next slice)."""
+        """Add the keyframe to the database, run loop detection, then the
+        geometric check of the consistent candidates (``loop_candidates``;
+        ``loop_with``: the first candidate that passes).  A verified loop
+        is reported and not corrected: the correction is not ported, so
+        ``loop_closed``, ``last_loop_kf`` and ``n_loops_closed`` stay
+        unset, and the next keyframes are checked again."""
         metrics = {}
         if self.voc is None:
             return metrics
@@ -156,8 +208,13 @@ class LoopCloser:
         with _timer.stage("loopclosing", "detect"):
             cand = self._detect(smap, kf)
         metrics["loop_candidates"] = len(cand)
-        if len(cand):
-            metrics["loop_unchecked"] = len(cand)
+        if not len(cand):
+            return metrics
+
+        with _timer.stage("loopclosing", "computeSim3"):
+            hit = self._compute_sim3(smap, kf, cand)
+        if hit is not None:
+            metrics["loop_with"] = hit[0]
         return metrics
 
     # ------------------------------------------------------------------
@@ -210,3 +267,142 @@ class LoopCloser:
                 new_groups.append((group, 1))
         self.consistent_groups = new_groups
         return np.asarray(enough, np.int64)
+
+    # ------------------------------------------------------------------
+    def _compute_sim3(self, smap: mapstore.SlamMap, kf: int, cands):
+        """ComputeSim3 (LoopClosing.cc:231-406) over the candidates in
+        order: descriptor matching, Sim3 RANSAC, the refinement and the
+        guided match count.  Returns (cand, (s, R, t)) for the first
+        candidate that passes, g12 mapping the candidate's camera frame
+        into the keyframe's; None when none does."""
+        dev = smap.device
+        lcfg, scfg = self.cfg.loop, self.cfg.solver
+        K = upload(self.cfg.camera.K, dev)
+        for cand in cands:
+            cand = int(cand)
+            pairs = self._loop_pairs(smap, kf, cand)
+            if pairs is None:
+                continue
+            samples = self._sim3_samples(
+                pairs.valid_np, ransac_budget(scfg, int(pairs.valid_np.sum())))
+            res = sim3_solver.sim3_ransac(
+                *pairs[:7], K, samples=upload(samples, dev),
+                min_inliers=lcfg.min_sim3_inliers)
+            if not bool(res.ok):
+                continue
+            # the refinement with bidirectional reprojection edges
+            # (Optimizer::OptimizeSim3, LoopClosing.cc:328), each pair
+            # weighted by 1 / sigma^2 of its octaves
+            isig1 = 1.0 / torch.clamp(pairs.max_err1 / 9.21, min=1e-9)
+            isig2 = 1.0 / torch.clamp(pairs.max_err2 / 9.21, min=1e-9)
+            with true_fp32():
+                ref = sim3_opt.optimize_sim3(
+                    res.s, res.R, res.t, *pairs[:4], isig1, isig2,
+                    res.inliers, K, chi2_th=scfg.sim3_chi2,
+                    iters1=scfg.sim3_iters1, iters2=scfg.sim3_iters2)
+            if int(ref.n_inliers) < lcfg.min_sim3_inliers:
+                continue
+            # guided projection matching through the refined Sim3
+            # (SearchBySim3 / SearchByProjection, LoopClosing.cc:324,379):
+            # the final accept counts all matches, not only the inliers
+            g12 = (ref.s, ref.R, ref.t)
+            if self._count_guided_matches(smap, kf, cand, g12) \
+                    >= lcfg.min_total_matches:
+                return cand, g12
+        return None
+
+    def _sim3_samples(self, valid: np.ndarray, n_samples: int
+                      ) -> torch.Tensor:
+        if self.sim3_sampler is not None:
+            return torch.as_tensor(np.asarray(
+                self.sim3_sampler(valid, n_samples), np.int64))
+        return pnp.draw_samples(self.generator, valid, n_samples, 3)
+
+    def _loop_pairs(self, smap: mapstore.SlamMap, kf: int,
+                    cand: int) -> Optional[LoopPairs]:
+        """Landmark-to-landmark descriptor matching of the keyframe's
+        observed slots against the candidate's (the role of SearchByBoW;
+        the dense match needs no BoW gating) at th_low with ratio 0.75, and
+        the matched landmarks in each keyframe's camera frame.  None below
+        min_bow_matches observed slots on either side or matches."""
+        st = smap.state
+        dev = smap.device
+        need = self.cfg.loop.min_bow_matches
+        obs1, obs2 = smap.obs_np[kf], smap.obs_np[cand]
+        if (obs1 >= 0).sum() < need or (obs2 >= 0).sum() < need:
+            return None
+        dist = match_ops.hamming_matrix(st.kf_desc[kf], st.kf_desc[cand])
+        mask = match_ops.valid_mask(upload(obs1 >= 0, dev),
+                                    upload(obs2 >= 0, dev))
+        mm = match_ops.match_nn(match_ops.apply_masks(dist, mask),
+                                max_dist=self.cfg.matcher.th_low, ratio=0.75)
+        mm = match_ops.resolve_duplicates(mm, st.kf_desc.shape[1])
+        # the one read of the matching: a row's index is -1 where it has
+        # no match
+        idx = mm.idx.cpu().numpy()
+        if (idx >= 0).sum() < need:
+            return None
+        idx2 = np.clip(idx, 0, None)
+        pid2 = obs2[idx2]
+        pv = (idx >= 0) & (obs1 >= 0) & (pid2 >= 0)
+        Xw1 = st.mp_pos[upload(np.clip(obs1, 0, None).astype(np.int64), dev)]
+        Xw2 = st.mp_pos[upload(np.clip(pid2, 0, None).astype(np.int64), dev)]
+        sigma2 = self.cfg.extractor.sigma2
+        top = len(sigma2) - 1
+        lv1 = smap.host["kf_level"][kf]
+        lv2 = smap.host["kf_level"][cand][idx2]
+        idx2_d = upload(idx2.astype(np.int64), dev)
+        return LoopPairs(
+            X1=se3.transform(st.kf_R[kf], st.kf_t[kf], Xw1),
+            X2=se3.transform(st.kf_R[cand], st.kf_t[cand], Xw2),
+            uv1=st.kf_xy[kf], uv2=st.kf_xy[cand][idx2_d],
+            max_err1=upload(9.21 * sigma2[np.clip(lv1, 0, top)], dev,
+                            torch.float32),
+            max_err2=upload(9.21 * sigma2[np.clip(lv2, 0, top)], dev,
+                            torch.float32),
+            valid=upload(pv, dev), valid_np=pv)
+
+    def _count_guided_matches(self, smap: mapstore.SlamMap, kf: int,
+                              cand: int, g12) -> int:
+        """Project the landmarks of the candidate and its top-5 covisible
+        keyframes through g12 into the keyframe and count the descriptor
+        matches inside a 12 px window (SearchByProjection through Scw,
+        ORBmatcher.cc:286)."""
+        st = smap.state
+        dev = smap.device
+        s, R, t = g12
+        w2 = self._covis_np(smap)[cand]
+        group = [cand] + [int(k) for k in np.argsort(-w2)[:5] if w2[k] > 0]
+        obs_g = smap.obs_np[group]
+        pid = np.unique(obs_g[obs_g >= 0])
+        if len(pid) == 0:
+            return 0
+        # the JAX package's fixed-size window: the first ids in sorted
+        # order, padded with id 0 marked invalid
+        cap = self.cfg.map.local_ba_max_points
+        pid = pid[:cap].astype(np.int64)
+        sel = upload(np.concatenate([pid, np.zeros(cap - len(pid),
+                                                   np.int64)]), dev)
+        pvalid = upload(np.arange(cap) < len(pid), dev) & st.mp_valid[sel]
+
+        # landmark -> keyframe camera frame through the refined Sim3
+        Xc = sim3.transform(s, R, t, se3.transform(
+            st.kf_R[cand], st.kf_t[cand], st.mp_pos[sel]))
+        z = Xc[:, 2]
+        Kc = self.cfg.camera.K
+        zc = torch.clamp(z, min=1e-6)
+        uv = torch.stack([Xc[:, 0] / zc * float(Kc[0, 0]) + float(Kc[0, 2]),
+                          Xc[:, 1] / zc * float(Kc[1, 1]) + float(Kc[1, 2])],
+                         dim=1)
+        cam = self.cam
+        ok = (pvalid & (z > 0)
+              & (uv[:, 0] >= cam.min_x) & (uv[:, 0] < cam.max_x)
+              & (uv[:, 1] >= cam.min_y) & (uv[:, 1] < cam.max_y))
+
+        dist = match_ops.hamming_matrix(st.mp_desc[sel], st.kf_desc[kf])
+        mask = (match_ops.window_mask(uv, st.kf_xy[kf], 12.0)
+                & match_ops.valid_mask(ok, st.kf_kp_valid[kf]))
+        mm = match_ops.match_nn(match_ops.apply_masks(dist, mask),
+                                max_dist=self.cfg.matcher.th_low)
+        mm = match_ops.resolve_duplicates(mm, st.kf_desc.shape[1])
+        return int(mm.valid.sum())

@@ -29,8 +29,8 @@ with async mapping.
 ``adopt_map`` resumes from a checkpointed map: tracking re-enters LOST
 and relocalizes into it.
 
-Not ported: the geometric check and correction of loop candidates (loop
-closing stops at detection); the JAX package's
+Not ported: the correction of a verified loop (the loop closer detects
+and checks candidates, and reports a verified one); the JAX package's
 ``prewarm_commit_variants`` (there is nothing to compile) and
 ``_start_host_prefetch`` (a workaround for its device link).
 A partial flush of the batch buffer dispatches only its frames: the JAX
@@ -1432,7 +1432,7 @@ class Tracker:
                 lc.db = lc.db.remove(ck)
                 lc.kf_bow.pop(ck, None)
         if lc is not None and lc.voc is not None:
-            # loop detection at keyframe rate (no correction yet)
+            # loop detection and check at keyframe rate (no correction yet)
             metrics.update(lc.process_keyframe(smap, kf))
 
         # the keyframe pose may have moved in local BA (mirrors are exact)

@@ -19,7 +19,9 @@ first of maximal inlier count, as ``jnp.argmax``.
 A sample whose covariance is not finite is zeroed before the batched SVD
 (torch's SVD raises on NaN where JAX returns NaN) and its hypothesis is
 set to NaN, so it counts no inliers.  Everything runs in true float32
-(TF32 off), and nothing reads the card: the caller reads ``ok`` once.
+(TF32 off).  On the card the two SVD calls wait for it (torch's CUDA SVD
+checks its solver's status on the host); nothing else reads the card, and
+the caller reads ``ok`` once.
 """
 from __future__ import annotations
 
@@ -123,13 +125,19 @@ def _sim3_ransac(X1, X2, uv1, uv2, max_err1, max_err2, valid, K, samples,
         return inl, inl.sum(dim=1)
 
     inls, counts = count(ss, Rs, ts)
-    best = torch.argmax(counts)          # the first maximum, as jnp.argmax
-    ok = counts[best] >= min_inliers
+    # the first maximum, as jnp.argmax; picked with index_select, since
+    # indexing by a 0-d CUDA tensor reads it to the host
+    best = torch.argmax(counts)[None]
+
+    def pick(x):
+        return x.index_select(0, best)[0]
+
+    ok = pick(counts) >= min_inliers
 
     # polish: re-fit on the best inlier set.  The JAX package's weighted
     # closed form, term by term: the covariance and the variance weight
     # one side only
-    inl = inls[best]
+    inl = pick(inls)
     wts = inl.to(X1.dtype)[:, None]
     nw = torch.clamp(torch.sum(wts), min=3.0)
     mu1 = torch.sum(X1 * wts, dim=0) / nw
@@ -141,12 +149,12 @@ def _sim3_ransac(X1, X2, uv1, uv2, max_err1, max_err2, valid, K, samples,
     sp, Rp, tp = _fit(cov[None], var2[None], mu1[None], mu2[None],
                       fix_scale)
     inl2, n2 = count(sp, Rp, tp)
-    better = n2[0] >= counts[best]
+    better = n2[0] >= pick(counts)
     return Sim3Result(
         ok=ok,
-        s=torch.where(better, sp[0], ss[best]),
-        R=torch.where(better, Rp[0], Rs[best]),
-        t=torch.where(better, tp[0], ts[best]),
+        s=torch.where(better, sp[0], pick(ss)),
+        R=torch.where(better, Rp[0], pick(Rs)),
+        t=torch.where(better, tp[0], pick(ts)),
         inliers=torch.where(better, inl2[0], inl),
-        n_inliers=torch.where(better, n2[0], counts[best]),
+        n_inliers=torch.where(better, n2[0], pick(counts)),
     )

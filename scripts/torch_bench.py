@@ -17,14 +17,14 @@ and the same gates (>= 90% of the window tracked, >= 5 keyframe
 insertions).  The mapping worker runs local mapping and place recognition
 (every keyframe into the BoW database, loop detection), as the JAX bench's
 does.  Differences: no prewarm calls (nothing compiles), and loop closing
-stops at detection (``"loop_closing": null``; ``"loop_unchecked"`` counts
-the keyframes whose consistent loop candidates went unchecked).  It runs on
-the card and fails without one.
+stops before the correction (``"loop_closing": null``; ``"loop_verified"``
+counts the keyframes whose loop check verified a candidate, which the port
+does not correct yet).  It runs on the card and fails without one.
 
 Prints detail lines, then one JSON line:
   {"metric": "tracking_fps", "value": N, "unit": "frames/s",
    "vs_baseline": N / 30, ..., "place_recognition": true,
-   "loop_closing": null, "loop_unchecked": N, "card": "..."}
+   "loop_closing": null, "loop_verified": N, "card": "..."}
 """
 import argparse
 import json
@@ -153,14 +153,13 @@ def main(argv=None) -> int:
           f"({n_kf_events} insertions), {tracker.slam_map.n_mp} map points")
     print(f"# pose latency ms (submit->retire): p50={lat.get('p50')} "
           f"p95={lat.get('p95')} max={lat.get('max')}")
-    loop_unchecked = sum(
-        bool(m.get("mapping", {}).get("loop_unchecked"))
-        + bool(m.get("loop_unchecked")) for m in all_metrics)
+    loop_verified = sum(("loop_with" in m.get("mapping", {}))
+                        + ("loop_with" in m) for m in all_metrics)
     lc_ms = GLOBAL_TIMER.summary().get("mapping/loopClosing", {})
     print(f"# mapping worker: local mapping and place recognition "
           f"(loopClosing {lc_ms.get('mean_ms')} ms per keyframe, host "
-          f"clock); {loop_unchecked} keyframes with unchecked loop "
-          f"candidates (loop closing stops at detection)")
+          f"clock); {loop_verified} keyframes with a verified loop (not "
+          f"corrected: loop closing stops before the correction)")
     system.shutdown()
     if tracked < int(0.9 * n_frames):
         raise RuntimeError("tracking degraded during bench")
@@ -179,7 +178,7 @@ def main(argv=None) -> int:
         "pose_latency_ms": lat,
         "place_recognition": True,
         "loop_closing": None,
-        "loop_unchecked": loop_unchecked,
+        "loop_verified": loop_verified,
         "card": card,
     }), flush=True)
     return 0

@@ -217,3 +217,256 @@ def tracking_world(extract, K, map_views, window: int, pool: int,
 def _host(x):
     """numpy value of a host array or a device tensor."""
     return x.cpu().numpy() if hasattr(x, "cpu") else x
+
+
+# ---------------------------------------------------------------------------
+# a scripted loop revisit for the loop closer (no rendering)
+
+REVISIT_QUERY = 13          # the keyframe whose loop is checked
+REVISIT_MATCH = 3           # the early keyframe it re-observes
+# one keyframe per gate of the check, each failing that gate alone
+REVISIT_DECOYS = {"matches": 4, "ransac": 5, "refine": 6, "guided": 7}
+DRIFT_SCALE = 1.3
+REFINE_SHIFT_PX = 2.8       # the refine decoy's pixel offsets
+
+
+def _flip_bits(rng, desc, n_bits):
+    """desc [M, 8] uint32 with n_bits distinct random bits flipped per
+    row."""
+    bits = np.argsort(rng.random((len(desc), 256)), axis=1)[:, :n_bits]
+    out = desc.copy()
+    rows = np.repeat(np.arange(len(desc)), n_bits)
+    np.bitwise_xor.at(out, (rows, (bits // 32).ravel()),
+                      (np.uint32(1) << (bits % 32).astype(np.uint32)).ravel())
+    return out
+
+
+def _rand_desc(rng, n):
+    return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def revisit_map(rng, n_slots, n_a, n_b, K, width=640, height=480,
+                outlier_fraction=0.4, n_levels=3):
+    """A map of 14 keyframes whose last one closes a loop, as numpy rows for
+    ``SlamMap.add_points`` / ``add_keyframe``.
+
+    Keyframes 0-3 see scene A (n_a landmarks; each observes 80% of those in
+    view), 4-9 a chain over scene B (n_b landmarks in a sliding window),
+    10-13 revisit 0-3 (3 degrees and 0.73 units off their poses) in a map
+    that drifted by the Sim3 D (scale DRIFT_SCALE, 3.4 degrees, a
+    translation): they observe new landmarks, D's images of 75% of scene A
+    in view, `outlier_fraction` of them displaced by 1-3 units (wrong
+    positions).  Every keyframe's slot descriptors are independent random
+    words, except that a revisit keyframe's slot of a copy carries the
+    descriptor of its original's slot in keyframe k - 10 with 3 bits
+    flipped; scene A's landmark descriptors are keyframe 3's.  So BoW
+    detection finds 1, 2, 3 from 11, 12, 13 and no neighbour scores high.
+
+    Keyframe 13 also holds three groups of slots for the decoys 5-7 (B
+    keyframes with extra slots on landmarks only they observe, paired with
+    landmarks only 13 observes, descriptors 2 bits apart): 24 pairs with
+    unrelated positions (RANSAC finds no Sim3); 22 pairs exact under a Sim3
+    g0 at level 0, whose pixels in 13 are shifted sideways by
+    REFINE_SHIFT_PX, 19 one way, 3 (beside 3 of the 19) the other: every
+    pair is within RANSAC's 9.21 px^2 of g0, but the refinement, pulled by
+    the 19, pushes the 3 past its 10 px^2 and keeps 19 < 20; and 28 exact
+    pairs whose landmarks are the only ones the
+    guided count can match (28 < 40).  Keyframe 4 matches nothing.
+
+    Returns dict(points=dict(pos, desc, ref_kf), kfs=[dict(R, t, xy,
+    level, angle, desc, kp_valid, obs)], g12=(s, R, t) of 13 against 3,
+    pairs=the number of landmarks 3 and 13 both observe, guided_g12=the
+    guided decoy's Sim3)."""
+    K = np.asarray(K, np.float64)
+    fx, cx, cy = K[0, 0], K[0, 2], K[1, 2]
+    n_kf, margin = 14, 8.0
+
+    def proj(Xc):
+        return np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx,
+                         K[1, 1] * Xc[:, 1] / Xc[:, 2] + cy], 1)
+
+    def in_view(Xc):
+        uv = proj(Xc)
+        return ((Xc[:, 2] > 0.5) & (uv[:, 0] >= margin)
+                & (uv[:, 0] < width - margin) & (uv[:, 1] >= margin)
+                & (uv[:, 1] < height - margin))
+
+    def cam_points(n, half_u, half_v, z_lo, z_hi):
+        z = rng.uniform(z_lo, z_hi, n)
+        return np.stack([rng.uniform(-half_u, half_u, n) * z,
+                         rng.uniform(-half_v, half_v, n) * z, z], 1)
+
+    # true world->camera poses
+    true = []
+    for k in range(n_kf):
+        if k < 4:
+            R = rotmat([0, 1, 0], 0.03 * k).astype(np.float64)
+            C = np.array([0.25 * k, 0.0, 0.0])
+        elif k < 10:
+            R = rotmat([0, 1, 0], 1.2 + 0.02 * (k - 4)).astype(np.float64)
+            C = np.array([3.0 + 0.1 * (k - 4), 0.0, 1.0])
+        else:
+            Rj, tj = true[k - 10]
+            R = rotmat([0.3, 1.0, 0.2], 0.05).astype(np.float64) @ Rj
+            C = -Rj.T @ tj + np.array([0.6, 0.1, -0.4])
+        true.append((R, -R @ C))
+    # the drift D and the revisit keyframes' poses in the drifted map
+    sD, RD = DRIFT_SCALE, rotmat([0.2, 1.0, 0.1], 0.06).astype(np.float64)
+    tD = np.array([0.4, -0.2, 0.3])
+    poses = [true[k] if k < 10 else
+             (true[k][0] @ RD.T, sD * true[k][1] - true[k][0] @ RD.T @ tD)
+             for k in range(n_kf)]
+
+    pos, pdesc, pref = [], [], []
+
+    def new_points(Xw, ref, desc=None):
+        first = sum(len(p) for p in pos)
+        pos.append(np.asarray(Xw, np.float64))
+        pdesc.append(_rand_desc(rng, len(Xw)) if desc is None else desc)
+        pref.append(np.full(len(Xw), ref, np.int32))
+        return first + np.arange(len(Xw))
+
+    def world(Xc, k):
+        R, t = poses[k]
+        return (Xc - t) @ R
+
+    # scene A and its drifted copies
+    XA = np.stack([rng.uniform(-1.5, 2.2, n_a), rng.uniform(-1.2, 1.2, n_a),
+                   rng.uniform(5.0, 9.0, n_a)], 1)
+    ida = new_points(XA, 0)
+    XA2 = sD * XA @ RD.T + tD
+    bad = rng.random(n_a) < outlier_fraction
+    XA2[bad] += rng.uniform(1.0, 3.0, (int(bad.sum()), 3))
+    idc = new_points(XA2, 10)
+
+    # observations: (point ids, true camera coordinates) per keyframe
+    obs = [[] for _ in range(n_kf)]          # (ids, pixels, desc, level)
+    desc_of = [dict() for _ in range(n_kf)]  # keyframe -> {point: desc}
+    sigma_px = 0.3
+
+    def observe(k, ids, Xw_true, desc=None, level=None, noise=sigma_px,
+                uv=None):
+        R, t = true[k]
+        Xc = Xw_true @ R.T + t
+        if uv is None:
+            uv = proj(Xc) + rng.normal(0, noise, (len(ids), 2))
+        d = _rand_desc(rng, len(ids)) if desc is None else desc
+        lv = (rng.integers(0, n_levels, len(ids)) if level is None
+              else np.full(len(ids), level))
+        obs[k].append((np.asarray(ids), uv, d, lv))
+        desc_of[k].update(zip(np.asarray(ids).tolist(), d))
+
+    for k in range(4):
+        R, t = true[k]
+        vis = in_view(XA @ R.T + t) & (rng.random(n_a) < 0.8)
+        observe(k, ida[vis], XA[vis])
+    for k in range(10, 14):
+        R, t = true[k]
+        vis = np.flatnonzero(in_view(XA @ R.T + t)
+                             & (rng.random(n_a) < 0.75))
+        src = desc_of[k - 10]
+        d = np.stack([src[int(ida[i])] if int(ida[i]) in src
+                      else _rand_desc(rng, 1)[0] for i in vis])
+        has = np.array([int(ida[i]) in src for i in vis])
+        d[has] = _flip_bits(rng, d[has], 3)
+        observe(k, idc[vis], XA[vis], desc=d)
+    # scene A's landmark descriptors: keyframe 3's slots
+    da = pdesc[0]
+    for j, p in enumerate(ida):
+        if int(p) in desc_of[3]:
+            da[j] = desc_of[3][int(p)]
+
+    # the decoys: landmarks seen only by keyframe d, paired with landmarks
+    # seen only by keyframe 13
+    q = REVISIT_QUERY
+
+    def decoy(d, X2, X1, uv1=None, level=None, guided=False):
+        dd = _rand_desc(rng, len(X2))
+        p2 = new_points(world(X2, d), d, dd if guided else None)
+        p1 = new_points(world(X1, q), q)
+        observe(d, p2, world_true(X2, d), desc=dd, level=level,
+                noise=0.0 if level is not None else sigma_px)
+        observe(q, p1, world_true(X1, q), desc=_flip_bits(rng, dd, 2),
+                level=level, uv=uv1,
+                noise=0.0 if level is not None else sigma_px)
+
+    def world_true(Xc, k):
+        R, t = true[k]
+        s = sD if k >= 10 else 1.0
+        return (Xc / s - t) @ R
+
+    def sim3_apply(s, R, t, X):
+        return s * X @ R.T + t
+
+    # RANSAC decoy: unrelated positions
+    decoy(REVISIT_DECOYS["ransac"], cam_points(24, 0.4, 0.3, 3.0, 8.0),
+          cam_points(24, 0.4, 0.3, 3.0, 8.0))
+    # refine decoy: exact under g0, pixels in 13 shifted sideways
+    X2 = cam_points(19, 0.3, 0.25, 4.0, 7.0)
+    X2 = np.concatenate([X2, X2[:3] + rng.normal(0, 0.02, (3, 3))])
+    g0 = (1.1, rotmat([0.3, 1.0, 0.0], 0.02).astype(np.float64),
+          np.array([0.1, -0.05, 0.8]))
+    X1 = sim3_apply(*g0, X2)
+    uv1 = proj(X1)
+    uv1[:19, 0] += REFINE_SHIFT_PX
+    uv1[19:, 0] -= REFINE_SHIFT_PX
+    decoy(REVISIT_DECOYS["refine"], X2, X1, uv1=uv1, level=0)
+    # guided decoy: exact pairs, too few to reach min_total_matches
+    X2 = cam_points(28, 0.4, 0.3, 3.0, 8.0)
+    gg = (0.9, rotmat([1.0, 0.5, 0.0], 0.03).astype(np.float64),
+          np.array([-0.4, 0.2, 0.6]))
+    decoy(REVISIT_DECOYS["guided"], X2, sim3_apply(*gg, X2), guided=True)
+    ret_gg = tuple(np.asarray(x, np.float32) for x in gg)
+
+    # scene B, in front of keyframe 6 (its ids after the decoys', so a
+    # neighbourhood cut to local_ba_max_points keeps the decoys' landmarks)
+    R6, t6 = true[6]
+    XB = (cam_points(n_b, 0.45, 0.35, 4.0, 8.0) - t6) @ R6
+    idb = new_points(XB, 4)
+    for k in range(4, 10):
+        R, t = true[k]
+        lo = (k - 4) * n_b // 12
+        win = np.zeros(n_b, bool)
+        win[lo:lo + n_b // 2] = True
+        vis = in_view(XB @ R.T + t) & win
+        observe(k, idb[vis], XB[vis])
+
+    # slot layout
+    kfs = []
+    for k in range(n_kf):
+        ids = np.concatenate([o[0] for o in obs[k]]).astype(np.int32)
+        n = len(ids)
+        if n > n_slots:
+            raise ValueError(f"keyframe {k}: {n} observations > {n_slots}")
+        slots = rng.permutation(n_slots)
+        xy = rng.uniform([0, 0], [width, height], (n_slots, 2))
+        level = rng.integers(0, n_levels, n_slots)
+        desc = _rand_desc(rng, n_slots)
+        kp_valid = rng.random(n_slots) < 0.5
+        o = np.full(n_slots, -1, np.int32)
+        at = slots[:n]
+        xy[at] = np.concatenate([x[1] for x in obs[k]])
+        desc[at] = np.concatenate([x[2] for x in obs[k]])
+        level[at] = np.concatenate([x[3] for x in obs[k]])
+        kp_valid[at] = True
+        o[at] = ids
+        R, t = poses[k]
+        kfs.append(dict(R=R.astype(np.float32), t=t.astype(np.float32),
+                        xy=xy.astype(np.float32),
+                        level=level.astype(np.int32),
+                        angle=rng.uniform(0, 6.28, n_slots).astype(
+                            np.float32),
+                        desc=desc, kp_valid=kp_valid, obs=o))
+    Rq, tq = true[q]
+    Rm, tm = true[REVISIT_MATCH]
+    Rg = Rq @ Rm.T
+    both = np.intersect1d(kfs[REVISIT_MATCH]["obs"], ida)
+    n_pairs = int(np.isin(idc[np.searchsorted(ida, both)],
+                          kfs[q]["obs"]).sum())
+    return dict(
+        points=dict(pos=np.concatenate(pos).astype(np.float32),
+                    desc=np.concatenate(pdesc),
+                    ref_kf=np.concatenate(pref)),
+        kfs=kfs, pairs=n_pairs, guided_g12=ret_gg,
+        g12=(np.float32(sD), Rg.astype(np.float32),
+             (sD * (tq - Rg @ tm)).astype(np.float32)))

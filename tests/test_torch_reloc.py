@@ -323,13 +323,18 @@ def test_detect_over_a_revisit(rng):
         assert tlc.consistent_groups == jlc.consistent_groups
         found += len(tcand) > 0
     assert found >= 3
-    # the port's process_keyframe reports them unchecked
+    # the port's process_keyframe hands the candidates to the geometric
+    # check (which reads map tables this fake map lacks; it is held
+    # against JAX in tests/test_torch_loop_check.py)
     tlc2 = LoopCloser(cfg=tcfg, cam=None)
     tlc2.ensure_vocabulary(None)
+    checked = []
+    tlc2._compute_sim3 = lambda smap, kf, cands: checked.append(list(cands))
     m = {}
     for k in range(24):
         m = tlc2.process_keyframe(_fake_map(tcfg, obs, k + 1, desc), k)
-    assert m["loop_candidates"] == m["loop_unchecked"] > 0
+    assert m["loop_candidates"] == len(checked[-1]) > 0
+    assert "loop_with" not in m
 
 
 def test_worker_removes_culled_rows_then_adds_the_keyframe(rng):

@@ -36,7 +36,7 @@ from orb_slam_tpu_torch.solvers import sim3_opt as topt
 from orb_slam_tpu_torch.solvers import sim3_solver as tsolver
 from synthetic import default_K
 from test_sim3_opt import make_pair
-from torch_port_util import np_of, t_of
+from torch_port_util import jax_draws, np_of, t_of
 
 ALG_TOL = 1e-5
 FIT_TOL = 1e-5
@@ -189,16 +189,6 @@ def test_umeyama_sim3_exact(rng):
     close(fit[1:], g_gt[1:], 1e-4)
     close(fit, jsolver.umeyama_sim3(jnp.asarray(P2), jnp.asarray(P1)),
           FIT_TOL)
-
-
-def jax_draws(key, valid, n_samples):
-    """The JAX package's minimal sets (solvers/sim3_solver.py:62-68)."""
-    n = valid.shape[0]
-    w = jnp.asarray(valid).astype(jnp.float32)
-    p = w / jnp.maximum(jnp.sum(w), 1.0)
-    keys = jax.random.split(key, n_samples)
-    return np.array(jax.vmap(lambda k: jax.random.choice(
-        k, n, shape=(3,), replace=False, p=p))(keys))
 
 
 def outlier_scene(rng, zeta, n=120):

@@ -24,3 +24,17 @@ def desc_bits(a, b):
     x = np.bitwise_xor(np.asarray(a).view(np.uint32),
                        np.asarray(b).view(np.uint32))
     return np.unpackbits(x.view(np.uint8), axis=1).sum(axis=1)
+
+
+def jax_draws(key, valid, n_samples):
+    """The JAX package's Sim3 RANSAC minimal sets for `key`
+    (orb_slam_tpu/solvers/sim3_solver.py:62-68): [n_samples, 3] indices of
+    valid rows, weighted by the valid mask, without replacement."""
+    import jax
+    import jax.numpy as jnp
+    n = valid.shape[0]
+    w = jnp.asarray(valid).astype(jnp.float32)
+    p = w / jnp.maximum(jnp.sum(w), 1.0)
+    keys = jax.random.split(key, n_samples)
+    return np.array(jax.vmap(lambda k: jax.random.choice(
+        k, n, shape=(3,), replace=False, p=p))(keys))
