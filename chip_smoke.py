@@ -4,8 +4,8 @@ per-frame tracking step, the synchronous System path, the bench
 configuration (async mapping, 16-frame batches), relocalisation, the
 command line with its dataset reader and map checkpoints, bundle
 adjustment on the grid layout, in the System and at scale, the
-loop-closing solvers (Sim3 RANSAC and refinement, the essential graph) and
-the loop closer's geometric check of loop candidates.
+loop-closing solvers (Sim3 RANSAC and refinement, the essential graph), the
+loop closer's geometric check of loop candidates and the loop correction.
 
     python3 chip_smoke.py
 
@@ -65,7 +65,9 @@ Phases (any failure raises and the script exits non-zero):
               worker and one database row per live keyframe, each kernel
               launched once per frame, host mirrors equal to their tables;
               then the winning attempt's PnP RANSAC on the card against the
-              CPU with the same samples; prints the {"reloc": {...}} line
+              CPU with the same samples, and that call's host syncs with
+              the best hypothesis picked by index_select against the same
+              pick by 0-d CUDA indexing; prints the {"reloc": {...}} line
   9. cli      the user's entry points from disk: N_CLI frames of the sweep
               rendered through fr1's intrinsics and distortion (rays of the
               undistorted pixel grid, from an independent numpy inverse of
@@ -136,9 +138,20 @@ Phases (any failure raises and the script exits non-zero):
               accept keyframe 3, g12 within LOOP_CHECK_AGREE of the CPU's
               and LOOP_TRUTH of the drift; ms per candidate by stage (card
               and CPU), host syncs per candidate (sync debug mode), and
-              process_keyframe on keyframe 13 after 0-12 (loop_with 3, no
-              correction); prints the {"loop_check": {...}} line
- 13. report   a JSON line of per-kernel numbers (with each kernel's share
+              process_keyframe on keyframe 13 after 0-12 (loop_with 3,
+              the loop closed); prints the {"loop_check": {...}} line
+ 13. loop_correct  the loop correction (LoopCloser._correct: propagation,
+              loop fusion, LoopConnections, the essential graph, the
+              re-map of every landmark, the mirrors' refresh) on phase
+              12's revisit map on the card against the same correction on
+              the CPU with the same g12 (the card's verified one): keyframe
+              poses within LOOP_CORRECT_AGREE, every valid landmark too,
+              the edge list, kf_obs, mp_valid and loop_edges exactly equal,
+              every mirror equal to its table, keyframes 10-13 moved toward
+              their true poses; ms per stage on both devices and host
+              syncs (sync debug mode); prints the {"loop_correct": {...}}
+              line
+ 14. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -238,6 +251,13 @@ LOOP_CHECK_AGREE = dict(s=1e-6, R=1e-6, t=1e-5)
 # the recovered g12 against the scripted drift: scale relative, rotation
 # in degrees, translation in map units (the pairs lie 5-9 units deep)
 LOOP_TRUTH = dict(s=0.01, deg=0.5, t=0.03)
+# phase 13: the loop correction on phase 12's revisit map, card vs CPU:
+# keyframe rotation entries, translations over the largest keyframe
+# translation, landmark positions over the largest landmark coordinate
+LOOP_CORRECT_AGREE = dict(R=1e-5, t=1e-5, pos=1e-5)
+# keyframes 10-13 against their true poses: camera-centre error after the
+# correction at most this share of the error before it
+LOOP_CORRECT_GAIN = 0.25
 LOOP_GATES = dict(matches=("match",), ransac=("match", "ransac"),
                   refine=("match", "ransac", "refine"),
                   guided=("match", "ransac", "refine", "guided"),
@@ -639,7 +659,10 @@ def main():
     # --- 12. loop check ---------------------------------------------------
     loop_check = loop_check_phase(dev, card)
 
-    # --- 13. report --------------------------------------------------------
+    # --- 13. loop correction ----------------------------------------------
+    loop_correct = loop_correct_phase(dev, card)
+
+    # --- 14. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
@@ -649,6 +672,7 @@ def main():
     print(json.dumps({"ba": ba}), flush=True)
     print(json.dumps({"loop_solvers": loop_solvers}), flush=True)
     print(json.dumps({"loop_check": loop_check}), flush=True)
+    print(json.dumps({"loop_correct": loop_correct}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1463,8 +1487,8 @@ def loop_check_phase(dev, card):
     syncs = sum(n for site, n in sync_w.sites.items()
                 if site.startswith("orb_slam_tpu_torch"))
 
-    # process_keyframe on the verified revisit: database, detection and
-    # the check of keyframe 13 after 0-12
+    # process_keyframe on the verified revisit: database, detection, the
+    # check of keyframe 13 after 0-12 and the correction
     lc = closer(dev)
     lc.ensure_vocabulary(None)
     for k in range(q):
@@ -1474,11 +1498,11 @@ def loop_check_phase(dev, card):
     m = lc.process_keyframe(maps[dev], q)
     sync()
     pk_ms = (time.perf_counter() - t0_) * 1e3
-    check(m.get("loop_with") == match and "loop_closed" not in m
-          and lc.last_loop_kf < 0 and lc.n_loops_closed == 0,
+    check(m.get("loop_with") == match and m.get("loop_closed")
+          and lc.last_loop_kf == q and lc.n_loops_closed == 1,
           f"process_keyframe({q}) reports loop_with {m.get('loop_with')} "
-          f"({m.get('loop_candidates')} candidates) in {pk_ms:.1f} ms and "
-          f"corrects nothing")
+          f"({m.get('loop_candidates')} candidates) and closes the loop in "
+          f"{pk_ms:.1f} ms")
     for name in order:
         r = rows[name]
         log(f"  {name:8s} kf {r['kf']}: stages {r['stages']}, card ms "
@@ -1501,6 +1525,187 @@ def loop_check_phase(dev, card):
         f"{sync_w.sites}; the check {record['check_ms']:.1f} ms on the card "
         f"({record['check_cpu_ms']:.1f} on the CPU); phase 12 took "
         f"{record['phase_s']:.1f} s")
+    return record
+
+
+def timed_correct(lc, smap, correct, *args):
+    """correct(smap, *args), LoopCloser._correct or a wrapper of it, with
+    each of lc's correction stages timed on the host's clock between
+    synchronizations of the map's device, exclusive of the stages nested
+    in it (refresh_host inside the writes); the stages are unwrapped again
+    after the call.  Returns (ms by stage, total ms, the graph's edges, the
+    LoopConnections)."""
+    import torch
+    dev = smap.device
+    ms, stack, seen = {}, [], {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            sync()
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                sync()
+                dt = (time.perf_counter() - t0) * 1e3
+                ms[name] = ms.get(name, 0.0) + dt - stack.pop()
+                if stack:
+                    stack[-1] += dt
+            seen[name] = out
+            return out
+        return call
+
+    stages = (("_propagate", "propagation"),
+              ("_write_propagated", "propagation"),
+              ("_search_and_fuse", "fuse"),
+              ("_loop_connections", "loop_connections"),
+              ("_graph_edges", "graph_edges"), ("_solve_graph", "graph_solve"),
+              ("_remap", "remap"))
+    for attr, name in stages:
+        setattr(lc, attr, timed(name, getattr(lc, attr)))
+    smap.refresh_host = timed("refresh_host", smap.refresh_host)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        correct(smap, *args)
+        sync()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        del smap.refresh_host
+        for attr, _ in stages:
+            del lc.__dict__[attr]
+    ms["other"] = total - sum(ms.values())
+    return ms, total, seen["graph_edges"], seen["loop_connections"]
+
+
+def loop_correct_phase(dev, card):
+    """Phase 13: the loop correction on `dev` against the same correction
+    on the CPU with the same g12, on phase 12's revisit map at full width.
+    Returns the {"loop_correct": ...} record; every check raises."""
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch.geometry.camera import make_camera
+    from orb_slam_tpu_torch.pipeline import loop_closer as lcm
+    cfg = system_config()
+    n_slots = cfg.extractor.max_keypoints
+    log(f"# phase 13: loop correction at {n_slots} slots, a "
+        f"{cfg.map.max_keyframes}-keyframe / {cfg.map.max_points}-point "
+        f"pool; {card}")
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    world = syn.revisit_map(np.random.default_rng(SEED), n_slots,
+                            LOOP_SCENE_A, LOOP_SCENE_B, cfg.camera.K,
+                            outlier_fraction=LOOP_OUTLIER_FRACTION)
+    q, match = syn.REVISIT_QUERY, syn.REVISIT_MATCH
+    cams = {d: make_camera(cfg.camera, device=d) for d in (dev, cpu)}
+
+    def closer(d):
+        return lcm.LoopCloser(cfg=cfg, cam=cams[d])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # the card's verified g12; a first correction on that map warms the
+    # card's handles up
+    warm = revisit_slam_map(cfg, world, dev)
+    hit = closer(dev)._compute_sim3(warm, q, [match])
+    check(hit is not None and hit[0] == match,
+          f"the check verifies keyframe {match} for keyframe {q}")
+    g12 = tuple(x.detach().cpu() for x in hit[1])
+    closer(dev)._correct(warm, q, match, tuple(x.to(dev) for x in g12))
+    runs = {}
+    for d in (dev, cpu):
+        smap = revisit_slam_map(cfg, world, d)
+        before = {k: smap.host[k][:q + 1].copy() for k in ("kf_R", "kf_t")}
+        lc = closer(d)
+        ms, total, edges, conn = timed_correct(
+            lc, smap, lc._correct, q, match, tuple(x.to(d) for x in g12))
+        runs[d.type] = dict(smap=smap, ms=ms, total=total, edges=edges,
+                            conn=conn, before=before)
+    card_r, cpu_r = runs[dev.type], runs["cpu"]
+    a, b = card_r["smap"], cpu_r["smap"]
+    pairs = [list(zip(r["edges"].i.tolist(), r["edges"].j.tolist()))
+             for r in (card_r, cpu_r)]
+    check(pairs[0] == pairs[1] and card_r["conn"] == cpu_r["conn"],
+          f"the essential graph: the same {len(pairs[0])} edges on both "
+          f"devices, {len(card_r['conn'])} LoopConnections")
+    same = (torch.equal(a.state.kf_obs.cpu(), b.state.kf_obs)
+            and torch.equal(a.state.mp_valid.cpu(), b.state.mp_valid)
+            and np.array_equal(a.obs_np, b.obs_np)
+            and np.array_equal(a.mp_valid_np, b.mp_valid_np)
+            and a.loop_edges == b.loop_edges == [(q, match)])
+    merged = int((b.obs_np != revisit_slam_map(cfg, world, cpu).obs_np)
+                 .sum())
+    check(same, f"kf_obs, mp_valid, their mirrors and loop_edges equal on "
+          f"both devices after the fusion ({merged} slots changed)")
+    n = q + 1
+    valid = b.mp_valid_np
+    R_gap = float((a.state.kf_R[:n].cpu() - b.state.kf_R[:n]).abs().max())
+    t_gap = float((a.state.kf_t[:n].cpu() - b.state.kf_t[:n]).abs().max()
+                  / b.state.kf_t[:n].abs().max())
+    pa, pb = a.state.mp_pos.cpu()[valid], b.state.mp_pos[valid]
+    pos_gap = float((pa - pb).abs().max() / pb.abs().max())
+    gap = dict(R=R_gap, t=t_gap, pos=pos_gap)
+    check(all(gap[k] <= LOOP_CORRECT_AGREE[k] for k in gap),
+          f"corrected poses and landmarks card vs CPU: R {R_gap:.2e}, t "
+          f"{t_gap:.2e}, positions {pos_gap:.2e} (<= {LOOP_CORRECT_AGREE})")
+    check_mirrors(a)
+
+    def centre_err(R, t, k):
+        Rt, tt = world["true"][k]
+        R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+        return float(np.linalg.norm(R.T @ t - Rt.T @ tt))
+
+    st = a.state
+    truth = {k: (centre_err(card_r["before"]["kf_R"][k],
+                            card_r["before"]["kf_t"][k], k),
+                 centre_err(st.kf_R[k].cpu().numpy(),
+                            st.kf_t[k].cpu().numpy(), k))
+             for k in range(10, n)}
+    check(all(after <= LOOP_CORRECT_GAIN * bef
+              for bef, after in truth.values()),
+          f"keyframes 10-13 toward their true poses, camera-centre error "
+          f"before -> after "
+          f"{ {k: tuple(round(x, 4) for x in v) for k, v in truth.items()} } "
+          f"(after <= {LOOP_CORRECT_GAIN} x before)")
+
+    # host syncs: a fresh correction under torch's sync debug mode
+    smap = revisit_slam_map(cfg, world, dev)
+    sync()
+    with ThreadWarnings() as sync_w:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            closer(dev)._correct(smap, q, match,
+                                 tuple(x.to(dev) for x in g12))
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(k for site, k in sync_w.sites.items()
+                if site.startswith("orb_slam_tpu_torch"))
+    record = dict(
+        slots=n_slots, pool=[cfg.map.max_keyframes, cfg.map.max_points],
+        keyframes=n, edges=len(pairs[0]),
+        loop_connections=len(card_r["conn"]), slots_fused=merged,
+        ms=card_r["ms"], total_ms=card_r["total"], cpu_ms=cpu_r["ms"],
+        cpu_total_ms=cpu_r["total"], card_vs_cpu=gap,
+        centre_error_before_after=truth, host_syncs=syncs,
+        sync_sites=sync_w.sites,
+        tolerances=dict(card_vs_cpu=LOOP_CORRECT_AGREE,
+                        gain=LOOP_CORRECT_GAIN),
+        phase_s=time.perf_counter() - t_phase, card=card)
+    rounded = {k: round(v, 3) for k, v in card_r["ms"].items()}
+    log(f"  ms by stage, card {rounded} "
+        f"(total {card_r['total']:.1f}); CPU "
+        f"{ {k: round(v, 3) for k, v in cpu_r['ms'].items()} } (total "
+        f"{cpu_r['total']:.1f}); {syncs} host syncs, sites {sync_w.sites}; "
+        f"phase 13 took {record['phase_s']:.1f} s")
     return record
 
 
@@ -1794,8 +1999,9 @@ def bench_phase(dev, card, kernels, system_record):
         ate_span_fraction_first_frames=prefix_ate, keyframes=int(
             tr.slam_map.kf_valid_np.sum()),
         map_points=int(tr.slam_map.mp_valid_np.sum()),
-        launches=launches, place_recognition=True, loop_closing=None,
-        loop_verified=verified_loops(logs), card=card)
+        launches=launches, place_recognition=True, loop_closing=True,
+        loop_verified=verified_loops(logs), loop_closed=closed_loops(logs),
+        card=card)
     log(f"  fps {record['fps_after_init']:.3f}; latency "
         f"{record['pose_latency_ms']}; tracking ms/frame "
         f"{record['tracking_ms_per_frame']}; commits {record['commit_ms']}; "
@@ -2013,7 +2219,7 @@ def reloc_phase(dev, card, kernels):
             "mapping/loopClosing", 0.0) * 1e3 / max(n_lc, 1),
         worker_place_recognition_passes=n_lc,
         worker_keyframes_added=worker_adds[0], database_rows=len(lc.db),
-        loop_verified=verified_loops(logs),
+        loop_verified=verified_loops(logs), loop_closed=closed_loops(logs),
         tracked_fraction_after_reloc=frac, ate_after_reloc_m=ate,
         path_span_after_reloc_m=span, ate_span_fraction=ate / span,
         run_s=run_s, pnp_card_vs_cpu=pnp_check, launches=launches,
@@ -2494,18 +2700,73 @@ def pnp_card_vs_cpu(call, cam, solver_cfg):
           f"pnp_ransac card vs CPU: refined poses within {refined[0]:.2e} "
           f"(rotation) and {refined[1]:.2e} (relative translation) <= "
           f"{PNP_POSE_AGREE}; raw RANSAC poses {raw[0]:.2e} / {raw[1]:.2e}")
+    syncs = pnp_selection_syncs(args, kw)
+    log(f"  pnp_ransac host syncs: {syncs['call']} per call (sites "
+        f"{syncs['call_sites']}); picking the best hypothesis: "
+        f"{syncs['index_select']} with index_select, "
+        f"{syncs['zero_d_index']} by 0-d CUDA indexing")
     return dict(n_inliers=int(card_res.n_inliers), mask_diff=mask_diff,
                 raw_pose_apart=raw, refined_pose_apart=refined,
                 n_samples=int(kw["samples"].shape[0]),
                 min_set=int(kw["samples"].shape[1]),
-                card_ms=card_ms, cpu_ms=cpu_ms)
+                card_ms=card_ms, cpu_ms=cpu_ms, host_syncs=syncs)
+
+
+def pnp_selection_syncs(args, kw):
+    """Host syncs of one pnp_ransac call on the card (sync debug mode),
+    and of its best-hypothesis pick on that call's scored hypotheses two
+    ways: with index_select, as shipped, and by indexing with the 0-d
+    argmax, as before (which reads the index to the host at each use)."""
+    import torch
+    from orb_slam_tpu_torch.geometry import se3
+    from orb_slam_tpu_torch.solvers import epnp, pnp
+    X, uv, inv_s2, valid, K = args
+    samples = kw["samples"].to(device=X.device, dtype=torch.int64)
+    Rs, ts = epnp.epnp(X[samples], uv[samples], K)
+    xc = se3.transform(Rs[:, None], ts[:, None], X[None])
+    z = xc[..., 2]
+    u = xc[..., 0] / torch.clamp(z, min=1e-6) * K[0, 0] + K[0, 2]
+    v = xc[..., 1] / torch.clamp(z, min=1e-6) * K[1, 1] + K[1, 2]
+    inls = valid[None] & (z > 0) & (
+        ((u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2) * inv_s2 <= 5.991)
+    counts = inls.sum(dim=1)
+    torch.cuda.synchronize()
+
+    def counted(fn):
+        with ThreadWarnings() as w:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return w
+
+    def by_index_select():
+        best = torch.argmax(counts)[None]
+        return [x.index_select(0, best)[0] for x in (counts, Rs, ts, inls)]
+
+    def by_zero_d():
+        best = torch.argmax(counts)
+        return counts[best] >= 1, Rs[best], ts[best], inls[best], counts[best]
+
+    # the debug mode's own switch may warn once: counted apart
+    probe = counted(lambda: None).count
+    call = counted(lambda: pnp.pnp_ransac(*args, **kw))
+    return dict(call=call.count - probe, call_sites=call.sites,
+                index_select=counted(by_index_select).count - probe,
+                zero_d_index=counted(by_zero_d).count - probe)
 
 
 def verified_loops(logs):
-    """Keyframes whose loop check verified a candidate (``loop_with``; the
-    port does not correct a loop yet)."""
+    """Keyframes whose loop check verified a candidate (``loop_with``)."""
     return sum(("loop_with" in m.get("mapping", {})) + ("loop_with" in m)
                for m in logs)
+
+
+def closed_loops(logs):
+    """Keyframes whose verified loop was corrected (``loop_closed``)."""
+    return sum(bool(m.get("mapping", {}).get("loop_closed"))
+               + bool(m.get("loop_closed")) for m in logs)
 
 
 def check_mirrors(smap):

@@ -185,6 +185,17 @@ class SlamMap:
                 setattr(smap, lut, np.asarray(counters[lut], np.int32).copy())
         return smap
 
+    def refresh_host(self, *names: str) -> None:
+        """Re-read the named host mirrors from their tables, all of them
+        when no name is given: one read per name, after a loop-rate
+        whole-map write (the loop correction).  The mirrors stay writable
+        copies that share no memory with the tables."""
+        for name in names or _HOST:
+            if name not in _HOST:
+                raise KeyError(f"{name} has no host mirror")
+            self.host[name] = getattr(self.state, name).to(
+                "cpu", copy=True).numpy()
+
     def set_kf_obs(self, obs_np: np.ndarray) -> None:
         """Adopt a full host observation table: one upload + mirror swap."""
         obs_np = np.ascontiguousarray(obs_np, np.int32)

@@ -7,7 +7,8 @@ mutex-guarded map (src/main.cc:123-133).  Here, as in the JAX package:
 
   * on keyframe insertion the tracker snapshots the SlamMap and submits it
     to the worker, which runs ``LocalMapper.process_keyframe`` and then
-    ``LoopCloser.process_keyframe`` on the snapshot while the tracker keeps
+    ``LoopCloser.process_keyframe`` (loop detection, the check and the
+    correction of a verified loop) on the snapshot while the tracker keeps
     tracking against its own map;
   * while the worker is busy the tracker inserts no keyframe (the
     reference's SetAcceptKeyFrames backpressure, src/LocalMapping.cc:
@@ -15,7 +16,8 @@ mutex-guarded map (src/main.cc:123-133).  Here, as in the JAX package:
     each submission (``interrupt_ba``, ``kf_queued``);
   * when the worker finishes, the tracker adopts its map and re-applies the
     landmark visible/found counts it accumulated meanwhile
-    (``Tracker._commit_mapping``).
+    (``Tracker._commit_mapping``); a job that closed a loop re-anchors the
+    tracker's last pose.
 
 Where the port differs:
 
@@ -32,10 +34,6 @@ Where the port differs:
     caching allocator does not hand their memory out while the other
     stream may still use it.
   * The worker's stage timer waits for its own stream only.
-  * Loop closing stops before the correction (``pipeline/loop_closer.py``):
-    the worker adds the keyframe to the place-recognition database, checks
-    the consistent loop candidates and reports a verified loop
-    (``loop_with``) without correcting the map.
 
 The LoopCloser is not part of the snapshot: the worker and the tracker
 share one, as in the JAX package.  That is safe because there is one

@@ -1,5 +1,5 @@
-"""Loop detection and the geometric check of loop candidates at keyframe
-rate (port of ``orb_slam_tpu.pipeline.loop_closer`` up to ComputeSim3).
+"""Loop detection, the geometric check of loop candidates and the loop
+correction at keyframe rate (port of ``orb_slam_tpu.pipeline.loop_closer``).
 
 The LoopClosing thread of the reference (src/LoopClosing.cc) per new
 keyframe:
@@ -9,16 +9,16 @@ keyframe:
   2. ComputeSim3 (:231-406): descriptor matching against each candidate's
      landmarks, Sim3 RANSAC and refinement, acceptance by inlier and
      total-match counts;
-  3. CorrectLoop (:408-570).
+  3. CorrectLoop (:408-570): the corrected Sim3 propagated to the current
+     covisibility group and its landmarks, loop fusion, the essential-graph
+     optimization over every keyframe (the loop keyframe fixed) and the
+     re-mapping of every landmark through its reference keyframe.  (ORB-SLAM
+     v1 runs no global BA after a loop, and neither does this.)
 
-This module ports steps 1 and 2 and the state they keep: the vocabulary,
-the keyframe database, one BoW row per keyframe, the consistent groups and
-the CPU generator of the Sim3 RANSAC draws.  A verified loop is reported
-(``loop_with``) and not yet corrected: step 3 (the essential-graph
-optimization, landmark re-mapping, loop fusion) is not ported, so
-``process_keyframe`` sets neither ``loop_closed`` nor ``last_loop_kf`` nor
-``n_loops_closed``.  The tracker's relocalisation reads the same
-vocabulary and database.
+The state kept across keyframes: the vocabulary, the keyframe database,
+one BoW row per keyframe, the consistent groups, the last loop keyframe
+and the CPU generator of the Sim3 RANSAC draws.  The tracker's
+relocalisation reads the same vocabulary and database.
 
 Detection is host numpy: the BoW transform reads the keyframe rows' host
 mirrors, covisibility comes from the observation mirror through the
@@ -26,7 +26,10 @@ compiled graph ops, so it costs no device read.  The check runs on the
 map's device; per checked candidate it reads the card four times at most
 (the match indices, RANSAC's ``ok``, the refined inlier count, the guided
 match count), and RANSAC's CUDA SVD waits for the card at its own status
-checks.
+checks.  The correction runs on the map's device too: its snapshot comes
+from the host mirrors, its propagation and edge measurements are one
+batched compose each, and the card is read by the loop fusion's fetches
+and by the pose and position mirrors' refresh after each whole-map write.
 """
 from __future__ import annotations
 
@@ -45,8 +48,9 @@ from ..mapping import mapstore
 from ..ops import match as match_ops
 from ..place import database as db_mod
 from ..place import vocabulary as voc_mod
-from ..solvers import pnp, sim3_opt, sim3_solver
+from ..solvers import pnp, pose_graph, sim3_opt, sim3_solver
 from ..utils.timing import GLOBAL_TIMER as _timer
+from .local_mapper import LocalMapper
 
 # the JAX loop closer's key is PRNGKey(7) (loop_closer.py:96)
 SIM3_SEED = 7
@@ -191,12 +195,12 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
     def process_keyframe(self, smap: mapstore.SlamMap, kf: int) -> dict:
-        """Add the keyframe to the database, run loop detection, then the
+        """Add the keyframe to the database, run loop detection, the
         geometric check of the consistent candidates (``loop_candidates``;
-        ``loop_with``: the first candidate that passes).  A verified loop
-        is reported and not corrected: the correction is not ported, so
-        ``loop_closed``, ``last_loop_kf`` and ``n_loops_closed`` stay
-        unset, and the next keyframes are checked again."""
+        ``loop_with``: the first candidate that passes) and the correction
+        of a verified loop (``loop_closed``).  A closed loop sets
+        ``last_loop_kf``, so the next min_kfs_between_loops keyframes are
+        not checked."""
         metrics = {}
         if self.voc is None:
             return metrics
@@ -213,8 +217,15 @@ class LoopCloser:
 
         with _timer.stage("loopclosing", "computeSim3"):
             hit = self._compute_sim3(smap, kf, cand)
-        if hit is not None:
-            metrics["loop_with"] = hit[0]
+        if hit is None:
+            return metrics
+        loop_kf, g12 = hit
+        metrics["loop_with"] = loop_kf
+        with _timer.stage("loopclosing", "correctLoop"):
+            self._correct(smap, kf, loop_kf, g12)
+        self.last_loop_kf = kf
+        self.n_loops_closed += 1
+        metrics["loop_closed"] = True
         return metrics
 
     # ------------------------------------------------------------------
@@ -406,3 +417,234 @@ class LoopCloser:
                                 max_dist=self.cfg.matcher.th_low)
         mm = match_ops.resolve_duplicates(mm, st.kf_desc.shape[1])
         return int(mm.valid.sum())
+
+    # ------------------------------------------------------------------
+    def _correct(self, smap: mapstore.SlamMap, kf: int, loop_kf: int, g12):
+        """CorrectLoop in the reference's order (LoopClosing.cc:408-570):
+
+        1. propagate the corrected Sim3 to the current covisibility group
+           and correct the group's landmarks (:425-479, the CorrectedSim3 /
+           NonCorrectedSim3 maps);
+        2. fuse the loop side's landmarks into the corrected group
+           (:505-527) and collect the new covisibility links the fusion
+           made, the LoopConnections (:529-546);
+        3. optimize the essential graph seeded with the corrected poses,
+           its edges measured from the pre-correction poses (:548), then
+           re-map every landmark through its (possibly propagated)
+           reference pose (Optimizer.cc:746-779).
+
+        g12 = (s, R, t) maps the loop keyframe's camera frame into kf's."""
+        n_kf = smap.n_kf
+        # the pre-correction snapshot (NonCorrectedSim3, s = 1 embeddings
+        # of the SE3 poses), from the host mirrors
+        snap = self._snapshot(smap, n_kf)
+        covis = self._covis_np(smap)[:n_kf, :n_kf]
+        group = [kf] + [int(g) for g in np.where(covis[kf] > 0)[0]
+                        if g != kf]
+        corr = self._propagate(snap, group, kf, loop_kf, g12)
+
+        # each group-observed landmark is corrected once, by its first
+        # observing group member (mnCorrectedByKF, LoopClosing.cc:443-461)
+        P = smap.state.mp_valid.shape[0]
+        corrected_by = np.full(P, -1, np.int32)
+        for i in group:
+            pid = smap.obs_np[i]
+            pid = pid[pid >= 0]
+            corrected_by[pid[corrected_by[pid] < 0]] = i
+        self._write_propagated(smap, snap, corr, corrected_by)
+
+        self._search_and_fuse(smap, kf, loop_kf)
+        loop_pairs = self._loop_connections(smap, covis, group)
+        edges = self._graph_edges(smap, covis, loop_pairs, snap, corr, kf,
+                                  loop_kf, g12)
+        new = self._solve_graph(corr, edges, loop_kf)
+        self._remap(smap, snap, corr, new, corrected_by)
+        smap.loop_edges.append((kf, loop_kf))
+
+    def _snapshot(self, smap: mapstore.SlamMap, n_kf: int):
+        """(s, R, t) of keyframes 0..n_kf-1 on the map's device, s = 1,
+        from the pose mirrors (no device read)."""
+        dev = smap.device
+        return (torch.ones(n_kf, dtype=torch.float32, device=dev),
+                upload(smap.host["kf_R"][:n_kf], dev),
+                upload(smap.host["kf_t"][:n_kf], dev))
+
+    @staticmethod
+    def _propagate(snap, group, kf: int, loop_kf: int, g12):
+        """The corrected Sim3 of every keyframe: g12 o S_loop for kf
+        (mg2oScw = gScm * Smw), (S_i o S_kf^-1) o S_kf_corrected for the
+        rest of the group (CorrectedSim3, LoopClosing.cc:425-441), the
+        snapshot elsewhere.  One batched compose over the group, in
+        float32."""
+        s, R, t = snap
+        dev = s.device
+        gs, gR, gt = (x.to(device=dev, dtype=torch.float32) for x in g12)
+        s_kfc, R_kfc, t_kfc = sim3.compose(gs, gR, gt, s[loop_kf],
+                                           R[loop_kf], t[loop_kf])
+        rest = upload(np.asarray(group[1:], np.int64), dev)
+        inv = sim3.inverse(s[kf], R[kf], t[kf])
+        sik, Rik, tik = sim3.compose(s[rest], R[rest], t[rest], *inv)
+        si, Ri, ti = sim3.compose(sik, Rik, tik, s_kfc, R_kfc, t_kfc)
+        s_c, R_c, t_c = s.clone(), R.clone(), t.clone()
+        s_c[kf], R_c[kf], t_c[kf] = s_kfc, R_kfc, t_kfc
+        s_c[rest], R_c[rest], t_c[rest] = si, Ri, ti
+        return s_c, R_c, t_c
+
+    @staticmethod
+    def _write_pose_tables(smap: mapstore.SlamMap, s, R, t, mp_pos):
+        """Write Sim3 keyframe poses as SE3 (scale folded into t: [R, t/s],
+        LoopClosing.cc:470-477) and the landmark positions, then re-read
+        their mirrors."""
+        n_kf = s.shape[0]
+        st = smap.state
+        R_se3, t_se3 = sim3.to_se3(s, R, t)
+        st.kf_R[:n_kf] = se3.orthonormalize(R_se3)
+        st.kf_t[:n_kf] = t_se3
+        st.mp_pos.copy_(mp_pos)
+        smap.refresh_host("kf_R", "kf_t", "mp_pos")
+
+    def _write_propagated(self, smap: mapstore.SlamMap, snap, corr,
+                          corrected_by: np.ndarray):
+        """Move the group's landmarks with their correcting member and
+        write the propagated poses, so that the fusion projects with
+        them."""
+        st = smap.state
+        touched = upload(corrected_by >= 0, smap.device)
+        ref = upload(np.maximum(corrected_by, 0).astype(np.int64),
+                     smap.device)
+        prop = pose_graph.correct_points(st.mp_pos, ref, *snap, *corr)
+        self._write_pose_tables(
+            smap, *corr,
+            torch.where((touched & st.mp_valid)[:, None], prop, st.mp_pos))
+
+    def _loop_connections(self, smap: mapstore.SlamMap, covis: np.ndarray,
+                          group) -> set:
+        """The (group member, keyframe) links at covisibility_weight_strong
+        or above that the fusion made: to keyframes outside the group that
+        the member was not linked to before (LoopClosing.cc:529-546)."""
+        n_kf = covis.shape[0]
+        after = self._covis_np(smap)[:n_kf, :n_kf]
+        strong = self.cfg.loop.covisibility_weight_strong
+        in_group = set(group)
+        pairs = set()
+        for i in group:
+            before = covis[i] > 0
+            for j in np.where(after[i] >= strong)[0].tolist():
+                if j != i and j not in in_group and not before[j]:
+                    pairs.add((i, j))
+        return pairs
+
+    def _graph_edges(self, smap: mapstore.SlamMap, covis: np.ndarray,
+                     loop_pairs: set, snap, corr, kf: int, loop_kf: int,
+                     g12) -> pose_graph.Sim3Edges:
+        """The essential graph's edges in the JAX package's order: the
+        spanning tree, the strong covisibility and the old loop edges,
+        sorted and measured from the snapshot; the LoopConnections, sorted
+        and measured from the corrected poses (Optimizer.cc:604-631 reads
+        vScw); the new loop edge g12.  A measurement is S_a o S_b^-1; all
+        of them come from one batched compose over the stacked snapshot
+        and corrected poses."""
+        n_kf = covis.shape[0]
+        pairs = set()
+        for k in range(1, n_kf):
+            p = int(smap.parent[k])
+            if p >= 0:
+                pairs.add((min(k, p), max(k, p)))
+        a, b = np.where(covis >= self.cfg.loop.covisibility_weight_strong)
+        pairs.update((int(x), int(y)) for x, y in zip(a, b) if x < y)
+        pairs.update((min(x, y), max(x, y)) for x, y in smap.loop_edges)
+        base, conn = sorted(pairs), sorted(loop_pairs)
+        ij = np.asarray(base + conn, np.int64).reshape(-1, 2)
+        # rows of the stacked poses: the snapshot, then the corrected ones
+        off = np.repeat([0, n_kf], [len(base), len(conn)])
+        dev = smap.device
+        ra, rb = upload(ij[:, 0] + off, dev), upload(ij[:, 1] + off, dev)
+        s, R, t = (torch.cat([x, y]) for x, y in zip(snap, corr))
+        sm, Rm, tm = sim3.compose(s[ra], R[ra], t[ra],
+                                  *sim3.inverse(s[rb], R[rb], t[rb]))
+        # the new loop edge: S_kf_corrected o S_loop^-1 = g12
+        gs, gR, gt = (x.to(device=dev, dtype=torch.float32) for x in g12)
+        ij = np.concatenate([ij, [[kf, loop_kf]]])
+        return pose_graph.Sim3Edges(
+            i=upload(ij[:, 0], dev), j=upload(ij[:, 1], dev),
+            s_meas=torch.cat([sm, gs.reshape(1)]),
+            R_meas=torch.cat([Rm, gR[None]]),
+            t_meas=torch.cat([tm, gt[None]]),
+            valid=torch.ones(len(ij), dtype=torch.bool, device=dev))
+
+    def _solve_graph(self, corr, edges: pose_graph.Sim3Edges, loop_kf: int):
+        """optimize_essential_graph with the loop keyframe fixed, seeded
+        with the corrected poses, in true float32.  The JAX package shards
+        the graph over mesh.model_parallel devices when it has that many
+        and solves it on one device otherwise; the port solves on one
+        device in the same case, and raises where the JAX package would
+        shard (the sharded graph is not ported)."""
+        s, R, t = corr
+        n_shards = self.cfg.mesh.model_parallel
+        if n_shards > 1 and _n_devices(s.device) >= n_shards:
+            raise NotImplementedError(
+                f"the essential graph sharded over mesh.model_parallel="
+                f"{n_shards} devices (parallel/dist_pose_graph.py) comes "
+                "with the multi-device slice of the port")
+        fixed = torch.arange(s.shape[0], device=s.device) == loop_kf
+        with true_fp32():
+            s_new, R_new, t_new, _ = pose_graph.optimize_essential_graph(
+                s, R, t, fixed, edges,
+                n_iters=self.cfg.solver.essential_graph_iters)
+        return s_new, R_new, t_new
+
+    def _remap(self, smap: mapstore.SlamMap, snap, corr, new,
+               corrected_by: np.ndarray):
+        """Re-map every valid landmark through its reference keyframe:
+        the propagation's landmarks through their correcting member's
+        propagated pose as the old pose (mnCorrectedReference,
+        Optimizer.cc:752-767), the rest through their reference keyframe's
+        snapshot pose; then write the optimized poses."""
+        st = smap.state
+        dev = smap.device
+        n_kf = snap[0].shape[0]
+        touched = upload(corrected_by >= 0, dev)
+        ref = torch.where(touched,
+                          upload(corrected_by.astype(np.int64), dev),
+                          torch.clamp(st.mp_ref_kf.long(), 0, n_kf - 1))
+        s_old, R_old, t_old = (
+            torch.where(touched.reshape((-1,) + (1,) * (x.dim() - 1)),
+                        y[ref], x[ref]) for x, y in zip(snap, corr))
+        s_new, R_new, t_new = new
+        Xc = sim3.transform(s_old, R_old, t_old, st.mp_pos)
+        new_pos = sim3.transform(*sim3.inverse(s_new[ref], R_new[ref],
+                                               t_new[ref]), Xc)
+        self._write_pose_tables(
+            smap, s_new, R_new, t_new,
+            torch.where(st.mp_valid[:, None], new_pos, st.mp_pos))
+
+    def _search_and_fuse(self, smap: mapstore.SlamMap, kf: int,
+                         loop_kf: int):
+        """SearchAndFuse (LoopClosing.cc:505-527, :572-586): after the
+        propagation, project the landmarks of the loop keyframe and its
+        top-5 covisible keyframes into kf and its top-5 and merge the
+        duplicates (the revisit mapped the region twice; fusing stitches
+        the two sheets together), on one host working copy committed once
+        through set_kf_obs / set_mp_valid."""
+        lm = LocalMapper(cfg=self.cfg, cam=self.cam)
+        w = lm._covis_row_np(smap, kf)
+        cur_side = [kf] + [int(k) for k in np.argsort(-w)[:5] if w[k] > 0]
+        w2 = lm._covis_row_np(smap, loop_kf)
+        loop_side = [loop_kf] + [int(k) for k in np.argsort(-w2)[:5]
+                                 if w2[k] > 0]
+        obs_l = smap.obs_np[loop_side]
+        cand = np.unique(obs_l[obs_l >= 0])
+        ctx = dict(obs=smap.obs_np.copy(), mp_valid=smap.mp_valid_np.copy(),
+                   changed=False)
+        for tgt in cur_side:
+            lm._fuse_candidates_into(smap, tgt, cand, ctx)
+        if ctx["changed"]:
+            smap.set_kf_obs(ctx["obs"])
+            smap.set_mp_valid(ctx["mp_valid"])
+
+
+def _n_devices(device: torch.device) -> int:
+    """The devices a sharded solve could use: the CUDA cards for a map on
+    the card, one for a map on the CPU (as JAX's default CPU backend has
+    one)."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1

@@ -29,10 +29,13 @@ with async mapping.
 ``adopt_map`` resumes from a checkpointed map: tracking re-enters LOST
 and relocalizes into it.
 
-Not ported: the correction of a verified loop (the loop closer detects
-and checks candidates, and reports a verified one); the JAX package's
-``prewarm_commit_variants`` (there is nothing to compile) and
-``_start_host_prefetch`` (a workaround for its device link).
+A mapping job or synchronous keyframe that closed a loop moved the whole
+map: the last pose is carried along with the keyframe's correction and the
+motion model is reset.
+
+Not ported: the JAX package's ``prewarm_commit_variants`` (there is
+nothing to compile) and ``_start_host_prefetch`` (a workaround for its
+device link).
 A partial flush of the batch buffer dispatches only its frames: the JAX
 tracker pads it to frame_batch to keep one compiled program.
 """
@@ -311,6 +314,7 @@ class Tracker:
         between keyframes), remapped if the worker compacted the pool."""
         P = self.cfg.map.max_points
         cur = self.slam_map.state
+        old_host = self.slam_map.host
         new_map = res.smap
         nst = new_map.state
         dev = self.device
@@ -352,6 +356,24 @@ class Tracker:
         if self.ref_kf >= 0 and (self.ref_kf >= len(kf_valid)
                                  or not kf_valid[self.ref_kf]):
             self.ref_kf = res.kf
+
+        if res.metrics.get("loop_closed"):
+            # the map moved under the tracker (CorrectLoop, then
+            # src/LoopClosing.cc:551): carry the job keyframe's world
+            # correction onto the last tracked pose, G^-1 = Twc_old o
+            # Tcw_new, from the pose mirrors before and after the commit
+            # (no device read); reset the motion model
+            R_old, t_old = old_host["kf_R"][res.kf], old_host["kf_t"][res.kf]
+            R_new, t_new = new_map.host["kf_R"][res.kf], \
+                new_map.host["kf_t"][res.kf]
+            R_g = R_old.T @ R_new
+            t_g = R_old.T @ (t_new - t_old)
+            R_last = np.asarray(self.last_R)
+            self.last_R = _orthonormalize_np(R_last @ R_g)
+            self.last_t = (R_last @ t_g + np.asarray(self.last_t)).astype(
+                np.float32)
+            self.vel_R, self.vel_t = None, None
+            self.local_mapper.refresh_point_stats(self.slam_map)
 
     def finish(self):
         """Retire in-flight frames and commit in-flight mapping work
@@ -1432,8 +1454,14 @@ class Tracker:
                 lc.db = lc.db.remove(ck)
                 lc.kf_bow.pop(ck, None)
         if lc is not None and lc.voc is not None:
-            # loop detection and check at keyframe rate (no correction yet)
-            metrics.update(lc.process_keyframe(smap, kf))
+            # loop detection, check and correction at keyframe rate
+            lc_metrics = lc.process_keyframe(smap, kf)
+            metrics.update(lc_metrics)
+            if lc_metrics.get("loop_closed"):
+                # the whole map moved: refresh the landmark statistics and
+                # re-anchor tracking without the motion model
+                self.local_mapper.refresh_point_stats(smap)
+                self.vel_R, self.vel_t = None, None
 
         # the keyframe pose may have moved in local BA (mirrors are exact)
         self.last_R = smap.host["kf_R"][kf].copy()

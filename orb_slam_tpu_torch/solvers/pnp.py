@@ -138,6 +138,13 @@ def _pnp_ransac(X, uv, inv_sigma2, valid, K, samples, chi2_th, min_inliers,
     c2 = ((u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2) * inv_sigma2
     inls = valid[None] & (z > 0) & (c2 <= chi2_th)
     counts = inls.sum(dim=1)
-    best = torch.argmax(counts)          # the first maximum, as jnp.argmax
-    return PnPResult(ok=counts[best] >= min_inliers, R=Rs[best], t=ts[best],
-                     inliers=inls[best], n_inliers=counts[best])
+    # the first maximum, as jnp.argmax; picked with index_select, since
+    # indexing by a 0-d CUDA tensor reads it to the host
+    best = torch.argmax(counts)[None]
+
+    def pick(x):
+        return x.index_select(0, best)[0]
+
+    n_best = pick(counts)
+    return PnPResult(ok=n_best >= min_inliers, R=pick(Rs), t=pick(ts),
+                     inliers=pick(inls), n_inliers=n_best)

@@ -14,17 +14,19 @@ same warm-up (>= 4 more keyframes and the mapping worker idle, then
 ``finish()``), the same measured window (pre-rendered frames, the clock
 stopped after the pipeline is drained, pose latency from submit to retire)
 and the same gates (>= 90% of the window tracked, >= 5 keyframe
-insertions).  The mapping worker runs local mapping and place recognition
-(every keyframe into the BoW database, loop detection), as the JAX bench's
-does.  Differences: no prewarm calls (nothing compiles), and loop closing
-stops before the correction (``"loop_closing": null``; ``"loop_verified"``
-counts the keyframes whose loop check verified a candidate, which the port
-does not correct yet).  It runs on the card and fails without one.
+insertions).  The mapping worker runs local mapping and loop closing
+(every keyframe into the BoW database, loop detection, the check of
+consistent candidates and the correction of a verified loop), as the JAX
+bench's does; ``"loop_verified"`` counts the keyframes whose check
+verified a candidate, ``"loop_closed"`` those whose loop was corrected.
+Difference: no prewarm calls (nothing compiles).  It runs on the card and
+fails without one.
 
 Prints detail lines, then one JSON line:
   {"metric": "tracking_fps", "value": N, "unit": "frames/s",
    "vs_baseline": N / 30, ..., "place_recognition": true,
-   "loop_closing": null, "loop_verified": N, "card": "..."}
+   "loop_closing": true, "loop_verified": N, "loop_closed": N,
+   "card": "..."}
 """
 import argparse
 import json
@@ -155,11 +157,13 @@ def main(argv=None) -> int:
           f"p95={lat.get('p95')} max={lat.get('max')}")
     loop_verified = sum(("loop_with" in m.get("mapping", {}))
                         + ("loop_with" in m) for m in all_metrics)
+    loop_closed = sum(bool(m.get("mapping", {}).get("loop_closed"))
+                      + bool(m.get("loop_closed")) for m in all_metrics)
     lc_ms = GLOBAL_TIMER.summary().get("mapping/loopClosing", {})
-    print(f"# mapping worker: local mapping and place recognition "
+    print(f"# mapping worker: local mapping and loop closing "
           f"(loopClosing {lc_ms.get('mean_ms')} ms per keyframe, host "
-          f"clock); {loop_verified} keyframes with a verified loop (not "
-          f"corrected: loop closing stops before the correction)")
+          f"clock); {loop_verified} keyframes with a verified loop, "
+          f"{loop_closed} loops corrected")
     system.shutdown()
     if tracked < int(0.9 * n_frames):
         raise RuntimeError("tracking degraded during bench")
@@ -177,8 +181,9 @@ def main(argv=None) -> int:
         "keyframe_insertions": n_kf_events,
         "pose_latency_ms": lat,
         "place_recognition": True,
-        "loop_closing": None,
+        "loop_closing": True,
         "loop_verified": loop_verified,
+        "loop_closed": loop_closed,
         "card": card,
     }), flush=True)
     return 0

@@ -4,7 +4,7 @@
 normal entry point, ``System.process_image``.
 
     python3 scripts/torch_endurance_run.py [--frames 480] \\
-        [--out torch_endurance.json]
+        [--out torch_endurance.json] [--service-polls N] [--trace]
 
 The same world and drive as the JAX script (copies of its ``build_world``,
 ``lap_poses``, ``render_image`` and ``endurance_config``: 1500
@@ -15,23 +15,34 @@ read by path from ``orb_slam_tpu/data/vocab100k.npz``.  The JAX package's
 CPU runs closed their loop at frames 407 (RESULTS_r03.json) and 405
 (RESULTS_r05_cpu.json), so ~480 frames reach the first revisit.
 
-The port checks loop candidates and reports a verified one (``loop_with``)
-but does not correct the map yet, so the ATE here is the uncorrected one.
 The script logs every check the mapping worker makes: the candidates, the
 gate each one stopped at (descriptor matches, RANSAC, refined inliers,
-guided matches) with its counts, and the check's host-clock ms.  Reading
-the counts adds a few host syncs to the worker; the package itself reports
-only ``loop_candidates`` and ``loop_with``.
+guided matches) with its counts, and the check's host-clock ms; and every
+loop correction: its keyframes, its ms by stage (host clock between
+synchronizations of the card: propagation, fuse, LoopConnections, the
+graph's edges and solve, the re-map, refresh_host) and the Sim3-aligned
+ATE of the live keyframes just before and just after it.  Reading the
+counts adds a few host syncs to the worker; the package itself reports
+only ``loop_candidates``, ``loop_with`` and ``loop_closed``.
+
+``--service-polls N`` pins the mapping worker's visible service interval
+to N frames (``mapper_service_polls``; 0, the JAX script's setting, is
+live timing).  ``--trace`` records every keyframe decision, insertion,
+forced insertion and commit (``scripts/torch_kf_trace.py``'s wrappers)
+and each mapping job's frames from submission to commit and host-clock
+ms on the worker.
 
 Writes one JSON file: the first frame whose metrics carry
-``loop_candidates`` and the first with ``loop_with`` (frames are those at
-which the worker's result was committed), the checks, the StageTimer's
-``loopclosing/computeSim3`` ms per keyframe, the tracked fraction, fps,
-the Sim3-aligned keyframe ATE and the card's name and power limit.  Runs
-on the card (``--device cpu``: the plain PyTorch path on the CPU) and
-fails without one.
+``loop_candidates``, the first with ``loop_with`` and every frame with
+``loop_closed`` (frames are those at which the worker's result was
+committed), the checks, the corrections, the StageTimer's
+``loopclosing/*`` ms, the tracked fraction, fps, the Sim3-aligned
+keyframe ATE at the end (``ate_corrected``: a loop was closed before it)
+and the card's name and power limit.  Runs on the card (``--device cpu``:
+the plain PyTorch path on the CPU) and fails without one.
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,6 +53,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 VOCAB = os.path.join(ROOT, "orb_slam_tpu", "data", "vocab100k.npz")
 SEED = 7                    # endurance_run.run_endurance's
 
@@ -188,6 +200,66 @@ def log_checks(lc, checks):
     sim3_solver.sim3_ransac, sim3_opt.optimize_sim3 = rec_ransac, rec_refine
 
 
+def log_corrections(lc, corrections, gt_of):
+    """Wrap the loop closer's correction so that every call appends {kf,
+    loop_kf, frame, loop_frame, ms: {stage: ms}, ms_total, ate_before,
+    ate_after} to `corrections` (on the mapping worker; the stages timed
+    by chip_smoke.timed_correct; ate_*: the Sim3-aligned ATE of the live
+    keyframes' centres against gt_of(timestamps), None below 3
+    keyframes)."""
+    from chip_smoke import timed_correct
+    from orb_slam_tpu_torch.dataio import trajectory as traj
+    correct = lc._correct
+
+    def ate(smap):
+        live = np.where(smap.kf_valid_np[:smap.n_kf])[0]
+        if len(live) < 3:
+            return None
+        R, t = smap.host["kf_R"][live], smap.host["kf_t"][live]
+        centres = -np.einsum("kji,kj->ki", R, t)
+        return float(traj.ate_rmse(centres, gt_of(smap.kf_timestamp[live]),
+                                   with_scale=True))
+
+    def rec_correct(smap, kf, loop_kf, g12):
+        before = ate(smap)
+        ms, total, _, _ = timed_correct(lc, smap, correct, kf, loop_kf, g12)
+        corrections.append(dict(
+            kf=int(kf), loop_kf=int(loop_kf),
+            frame=int(smap.kf_frame_id[kf]),
+            loop_frame=int(smap.kf_frame_id[loop_kf]), ms=ms,
+            ms_total=total, ate_before=before, ate_after=ate(smap)))
+
+    lc._correct = rec_correct
+
+
+def trace_jobs(am, jobs, frame):
+    """Wrap the mapping worker's job so that every job appends {kf,
+    submitted (frame index), ms (host clock on the worker)} to `jobs`;
+    frame[0] is the index of the image being processed."""
+    run_job, submit = am._job, am.submit
+
+    def rec_submit(smap, kf):
+        jobs.append(dict(kf=int(kf), submitted=frame[0]))
+        return submit(smap, kf)
+
+    def rec_job(*a):
+        t0 = time.perf_counter()
+        out = run_job(*a)
+        ms = (time.perf_counter() - t0) * 1e3
+        for j in reversed(jobs):
+            if j["kf"] == out.kf and "ms" not in j:
+                j["ms"] = ms
+                break
+        return out
+
+    am.submit, am._job = rec_submit, rec_job
+
+
+def _spread(x):
+    return dict(median=float(np.median(x)), p90=float(np.percentile(x, 90)),
+                max=float(max(x)), n=len(x)) if len(x) else None
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -202,6 +274,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="torch_endurance.json")
     ap.add_argument("--device", default="cuda",
                     help="cpu runs the plain PyTorch path (a rehearsal)")
+    ap.add_argument("--service-polls", type=int, default=0,
+                    help="pin the mapping worker's service interval to N "
+                         "frames (0: live timing)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record keyframe decisions and mapping jobs")
     args = ap.parse_args(argv)
 
     import torch
@@ -216,18 +293,34 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
     rng = np.random.default_rng(SEED)
     cfg = endurance_config(vocab_path=VOCAB)
+    cfg = cfg.replace(tracker=dataclasses.replace(
+        cfg.tracker, mapper_service_polls=args.service_polls))
     X, patches = build_world(rng)
     poses, gt_centers = lap_poses(args.frames, args.frames_per_lap, rng)
     K = cfg.camera.K
 
+    def gt_of(ts):
+        return gt_centers[np.clip(np.round(np.asarray(ts) * 30.0)
+                                  .astype(int), 0, len(gt_centers) - 1)]
+
     system = System.create(cfg, device=args.device)
     tracker = system.tracker
-    checks = []
+    checks, corrections, jobs = [], [], []
     log_checks(tracker.loop_closer, checks)
+    log_corrections(tracker.loop_closer, corrections, gt_of)
+    frame = [0]
+    trace = None
+    if args.trace:
+        from torch_kf_trace import instrument
+        trace = dict(decisions=[], inserted=[], forced=[], commits=[],
+                     backpressure=[])
+        instrument(tracker, trace, frame)
+        trace_jobs(tracker.async_mapper, jobs, frame)
     GLOBAL_TIMER.reset()
-    events, first_cands, first_loop = {}, None, None
+    events, first_cands, first_loop, closed = {}, None, None, []
     t0 = time.perf_counter()
     for i, (R, t) in enumerate(poses):
+        frame[0] = i
         m = system.process_image(render_image(X, patches, R, t, K),
                                  timestamp=i / 30.0)
         ev = m.get("event")
@@ -238,6 +331,8 @@ def main(argv=None) -> int:
                 first_cands = i
             if "loop_with" in part and first_loop is None:
                 first_loop = (i, int(part["loop_with"]))
+            if part.get("loop_closed"):
+                closed.append(i)
         if i % 100 == 99:
             el = time.perf_counter() - t0
             print(f"frame {i + 1}/{args.frames}  {el:.0f} s "
@@ -246,6 +341,16 @@ def main(argv=None) -> int:
                   flush=True)
     system.shutdown()
     wall = time.perf_counter() - t0
+    if trace is not None:
+        # each job's commit: the first commit of its keyframe after it
+        commits = list(trace["commits"])
+        for j in jobs:
+            c = next((c for c in commits if c["kf"] == j["kf"]
+                      and c["image"] >= j["submitted"]), None)
+            if c is not None:
+                commits.remove(c)
+                j["committed"] = c["image"]
+                j["service_frames"] = c["image"] - j["submitted"]
 
     n = args.frames
     tracked = sum(1 for r in tracker.trajectory if r.tracked)
@@ -262,7 +367,8 @@ def main(argv=None) -> int:
         vocab_n_words=int(tracker.loop_closer.voc.n_words),
         tracked_frac=tracked / n, fps=n / wall, wall_s=wall,
         ate_rmse_sim3_m=None if ate is None else float(ate),
-        ate_corrected=False, trajectory_extent_m=6.0,
+        ate_corrected=bool(closed), trajectory_extent_m=6.0,
+        service_polls=args.service_polls,
         n_keyframes_final=int(tracker.slam_map.n_kf),
         live_keyframe_frames=sorted(
             int(f) for f in tracker.slam_map.kf_frame_id[
@@ -271,18 +377,28 @@ def main(argv=None) -> int:
         first_loop_candidates_frame=first_cands,
         first_loop_with=None if first_loop is None else dict(
             frame=first_loop[0], kf=first_loop[1]),
+        loop_closed_frames=closed,
+        loops_closed=int(tracker.loop_closer.n_loops_closed),
+        corrections=corrections,
+        ate_before_first_correction_m=(corrections[0]["ate_before"]
+                                       if corrections else None),
         checks=checks,
         compute_sim3=summary.get("loopclosing/computeSim3"),
         loop_closing_stages={k: v for k, v in summary.items()
                              if k.startswith("loopclosing/")},
         event_counts={k: len(v) for k, v in events.items()},
         events=events,
+        jobs=jobs, trace=trace,
+        job_service_frames=_spread([j["service_frames"] for j in jobs
+                                    if "service_frames" in j]),
+        job_ms=_spread([j["ms"] for j in jobs if "ms" in j]),
         card=card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps({k: v for k, v in results.items()
-                      if k not in ("checks", "events")}), flush=True)
+                      if k not in ("checks", "events", "jobs", "trace")}),
+          flush=True)
     print(f"# {len(checks)} checks; written to {args.out}", flush=True)
     return 0
 

@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""Trace the keyframe decisions of the endurance run, in either package,
+on the CPU, and compare two traces frame by frame.
+
+    python3 scripts/torch_kf_trace.py --package torch --frames 240 \\
+        --out torch.json
+    python3 scripts/torch_kf_trace.py --package jax --frames 240 \\
+        --out jax.json
+    python3 scripts/torch_kf_trace.py --compare jax.json torch.json \\
+        [--from-frame 120]
+
+Both runs use the endurance world, drive and configuration
+(``scripts/endurance_run.py`` for the JAX package,
+``scripts/torch_endurance_run.py`` for the port: 640x480, 600 features in
+640 slots, a 48-keyframe pool, async mapping, frame_batch 4) and the
+shipped 10^5-word vocabulary.  The tracker is instrumented from here by
+wrapping its methods on the instance; neither package changes.  Each
+trace holds, per image: the event, the inlier count, the state after it,
+the map's keyframe and landmark counts and the scalar metrics of a mapping
+job committed there; per keyframe decision (``_need_kf``): the frame,
+n_inl, n_ref_tracked, last_kf_frame_id, the answer, whether the worker
+was busy, whether the port's tracker was adopting a finished job
+(``_adopting``, the port only), and ``_force_kf``; every insertion's
+frame, every forced insertion, every commit of a mapping job (its
+keyframe, and whether its snapshot held fewer keyframes than the
+tracker's map: a stale commit); and for the port, every answer of
+``_backpressure``.
+
+``--service-polls N`` pins the worker's visible service interval to N
+frames in both packages (``mapper_service_polls``; 0, the endurance
+runs' setting, is live timing); ``--max-points N`` sets the port's
+landmark pool (8192 in the endurance configuration).  The JAX run needs
+JAX; the port runs with device="cpu".  240 frames take a few minutes per
+package.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+VOCAB = os.path.join(ROOT, "orb_slam_tpu", "data", "vocab100k.npz")
+SEED = 7
+
+
+def _system(package: str, service_polls: int, max_points: int = 0):
+    if package == "jax":
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        import endurance_run as er
+        from orb_slam_tpu.pipeline.system import System
+        cfg = er.endurance_config(48, 4, VOCAB, service_polls=service_polls)
+        return er, System.create(cfg)
+    import dataclasses
+    import torch_endurance_run as er
+    from orb_slam_tpu_torch.pipeline.system import System
+    cfg = er.endurance_config(vocab_path=VOCAB)
+    cfg = cfg.replace(tracker=dataclasses.replace(
+        cfg.tracker, mapper_service_polls=service_polls))
+    if max_points:
+        cfg = cfg.replace(map=dataclasses.replace(cfg.map,
+                                                  max_points=max_points))
+    return er, System.create(cfg, device="cpu")
+
+
+def instrument(tracker, trace: dict, frame: list):
+    """Wrap the tracker's keyframe decision, insertions, forced insertions,
+    commits and (port) backpressure on the instance; append to `trace`.
+    frame[0] is the index of the image being processed."""
+    need, create = tracker._need_kf, tracker._create_keyframe
+    starved, commit = tracker._starved_keyframe, tracker._commit_mapping
+
+    def rec_need(fid, n_inl):
+        out = need(fid, n_inl)
+        am = tracker.async_mapper
+        trace["decisions"].append(dict(
+            image=frame[0], fid=int(fid), n_inl=int(n_inl),
+            n_ref_tracked=int(tracker.n_ref_tracked),
+            last_kf_frame_id=int(tracker.last_kf_frame_id),
+            frames_since=int(fid - tracker.last_kf_frame_id),
+            need=bool(out), busy=bool(am is not None and am.busy),
+            adopting=bool(getattr(tracker, "_adopting", False)),
+            force_kf=bool(tracker._force_kf)))
+        return out
+
+    def rec_create(fd, timestamp, pid_global, metrics, frame_id=None,
+                   **kw):
+        fid = tracker.frame_id if frame_id is None else frame_id
+        trace["inserted"].append(dict(image=frame[0], fid=int(fid)))
+        return create(fd, timestamp, pid_global, metrics,
+                      frame_id=frame_id, **kw)
+
+    def rec_starved(metrics):
+        trace["forced"].append(dict(
+            image=frame[0], last_fid=int(tracker.trajectory[-1].frame_id)
+            if tracker.trajectory else -1))
+        return starved(metrics)
+
+    def rec_commit(res, metrics):
+        trace["commits"].append(dict(
+            image=frame[0], kf=int(res.kf),
+            stale=bool(res.smap.n_kf != tracker.slam_map.n_kf)))
+        return commit(res, metrics)
+
+    tracker._need_kf, tracker._create_keyframe = rec_need, rec_create
+    tracker._starved_keyframe, tracker._commit_mapping = (rec_starved,
+                                                          rec_commit)
+    if hasattr(tracker, "_backpressure"):
+        bp = tracker._backpressure
+
+        def rec_bp(n_inl, *a):
+            out = bp(n_inl, *a)
+            trace["backpressure"].append(dict(
+                image=frame[0], n_inl=int(n_inl), skipped=bool(out),
+                adopting=bool(tracker._adopting),
+                force_kf=bool(tracker._force_kf)))
+            return out
+        tracker._backpressure = rec_bp
+
+
+def run(package: str, n_frames: int, service_polls: int,
+        max_points: int = 0) -> dict:
+    er, system = _system(package, service_polls, max_points)
+    rng = np.random.default_rng(SEED)
+    X, patches = er.build_world(rng)
+    poses, _ = er.lap_poses(n_frames, 400, rng)
+    K = system.tracker.cfg.camera.K
+    trace = dict(package=package, n_frames=n_frames,
+                 service_polls=service_polls, frames=[], decisions=[],
+                 inserted=[], forced=[], commits=[], backpressure=[])
+    frame = [0]
+    instrument(system.tracker, trace, frame)
+    t0 = time.perf_counter()
+    for i, (R, t) in enumerate(poses):
+        frame[0] = i
+        m = system.process_image(er.render_image(X, patches, R, t, K),
+                                 timestamp=i / 30.0)
+        trace["frames"].append(dict(
+            image=i, event=m.get("event"), inliers=m.get("inliers"),
+            state=m.get("state_after"), kf_id=m.get("kf_id"),
+            n_keyframes=m.get("n_keyframes"),
+            n_map_points=m.get("n_map_points"),
+            mapping={k: v for k, v in m.get("mapping", {}).items()
+                     if isinstance(v, (bool, int, float))}))
+        if i % 40 == 39:
+            print(f"{package}: frame {i + 1}/{n_frames} "
+                  f"{time.perf_counter() - t0:.0f} s "
+                  f"kf={system.tracker.slam_map.n_kf}", flush=True)
+    system.shutdown()
+    trace["tracked"] = sum(1 for r in system.tracker.trajectory
+                           if r.tracked)
+    trace["wall_s"] = time.perf_counter() - t0
+    return trace
+
+
+def compare(a: dict, b: dict, first: int) -> dict:
+    """Side by side from frame `first` on: each package's insertion
+    frames, lost frames, forced insertions and skipped decisions, and
+    the keyframes inserted and mapping jobs committed over the run."""
+    def summary(t):
+        lost = [f["image"] for f in t["frames"] if f["state"] == "LOST"]
+        return dict(
+            tracked=t["tracked"], lost=lost,
+            n_inserted=len(t["inserted"]), n_committed=len(t["commits"]),
+            inserted=[x["fid"] for x in t["inserted"] if x["fid"] >= first],
+            forced=[x["image"] for x in t["forced"] if x["image"] >= first],
+            stale_commits=[x["image"] for x in t["commits"] if x["stale"]],
+            skipped=[(d["fid"], d["n_inl"], d["busy"], d["adopting"])
+                     for d in t["decisions"]
+                     if d["need"] and d["fid"] >= first
+                     and d["fid"] not in {x["fid"] for x in t["inserted"]}],
+            adopting_skips=sum(1 for x in t["backpressure"]
+                               if x["skipped"] and x["adopting"]),
+            busy_skips=sum(1 for x in t["backpressure"]
+                           if x["skipped"] and not x["adopting"]))
+    return {a["package"]: summary(a), b["package"]: summary(b)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--package", choices=("jax", "torch"))
+    ap.add_argument("--frames", type=int, default=240)
+    ap.add_argument("--service-polls", type=int, default=0)
+    ap.add_argument("--max-points", type=int, default=0,
+                    help="the port's landmark pool (0: the endurance "
+                         "configuration's 8192)")
+    ap.add_argument("--out", default="kf_trace.json")
+    ap.add_argument("--compare", nargs=2, metavar="TRACE")
+    ap.add_argument("--from-frame", type=int, default=120)
+    args = ap.parse_args(argv)
+    if args.compare:
+        traces = []
+        for p in args.compare:
+            with open(p) as f:
+                traces.append(json.load(f))
+        print(json.dumps(compare(*traces, args.from_frame), indent=1))
+        return 0
+    if args.package is None:
+        ap.error("--package or --compare is required")
+    if args.max_points and args.package != "torch":
+        ap.error("--max-points applies to the port only")
+    trace = run(args.package, args.frames, args.service_polls,
+                args.max_points)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(trace, f)
+    print(json.dumps(compare(trace, trace, 0)[args.package]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -276,7 +276,8 @@ def revisit_map(rng, n_slots, n_a, n_b, K, width=640, height=480,
     Returns dict(points=dict(pos, desc, ref_kf), kfs=[dict(R, t, xy,
     level, angle, desc, kp_valid, obs)], g12=(s, R, t) of 13 against 3,
     pairs=the number of landmarks 3 and 13 both observe, guided_g12=the
-    guided decoy's Sim3)."""
+    guided decoy's Sim3, true=[(R, t)] every keyframe's true world->camera
+    pose, float64; keyframes 0-9 are mapped at theirs)."""
     K = np.asarray(K, np.float64)
     fx, cx, cy = K[0, 0], K[0, 2], K[1, 2]
     n_kf, margin = 14, 8.0
@@ -467,6 +468,6 @@ def revisit_map(rng, n_slots, n_a, n_b, K, width=640, height=480,
         points=dict(pos=np.concatenate(pos).astype(np.float32),
                     desc=np.concatenate(pdesc),
                     ref_kf=np.concatenate(pref)),
-        kfs=kfs, pairs=n_pairs, guided_g12=ret_gg,
+        kfs=kfs, pairs=n_pairs, guided_g12=ret_gg, true=true,
         g12=(np.float32(sD), Rg.astype(np.float32),
              (sD * (tq - Rg @ tm)).astype(np.float32)))

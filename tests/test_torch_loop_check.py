@@ -323,8 +323,9 @@ def test_process_keyframe_reports_the_verified_loop(world):
     loop_with at the keyframe and candidate where the JAX loop closer's
     _detect + _compute_sim3, run by hand in its process_keyframe's order,
     first verify a loop, with the same loop_candidates at every keyframe;
-    and it corrects nothing (no loop_closed, last_loop_kf and
-    n_loops_closed unchanged)."""
+    and it closes that loop (loop_closed there only, last_loop_kf and
+    n_loops_closed set; the correction itself is held against JAX in
+    tests/test_torch_loop_correct.py)."""
     jlc = _loop_closer(False)
     jlc.ensure_vocabulary(None)
     jfirst, jcands = None, []
@@ -352,9 +353,10 @@ def test_process_keyframe_reports_the_verified_loop(world):
             tfirst = (k, m["loop_with"])
     assert [m.get("loop_candidates") for m in metrics] == jcands
     assert tfirst == jfirst == (Q, MATCH)
-    assert not any("loop_closed" in m or "loop_unchecked" in m
-                   for m in metrics)
-    assert tlc.last_loop_kf == -(10 ** 9) and tlc.n_loops_closed == 0
+    assert [k for k, m in enumerate(metrics) if m.get("loop_closed")] \
+        == [Q]
+    assert not any("loop_unchecked" in m for m in metrics)
+    assert tlc.last_loop_kf == Q and tlc.n_loops_closed == 1
 
 
 def test_generator_draws_without_a_sampler(world):
