@@ -5,7 +5,8 @@ configuration (async mapping, 16-frame batches), relocalisation, the
 command line with its dataset reader and map checkpoints, bundle
 adjustment on the grid layout, in the System and at scale, the
 loop-closing solvers (Sim3 RANSAC and refinement, the essential graph), the
-loop closer's geometric check of loop candidates and the loop correction.
+loop closer's geometric check of loop candidates, the loop correction, and
+the multi-device solvers on virtual shards of the card.
 
     python3 chip_smoke.py
 
@@ -151,7 +152,22 @@ Phases (any failure raises and the script exits non-zero):
               their true poses; ms per stage on both devices and host
               syncs (sync debug mode); prints the {"loop_correct": {...}}
               line
- 14. report   a JSON line of per-kernel numbers (with each kernel's share
+ 14. dist     the multi-device solvers (parallel/) on virtual shards of
+              the one card: the BA twin's ring world at DIST_CASE, sharded
+              dense and cg at DIST_SHARDS shards with both landmark
+              strategies, each final cost within DIST_COST_AGREE of the
+              single-device flat/dense solve on the card, ms per LM
+              iteration, the psum's share of it (CUDA events around each
+              psum) and peak memory per D; phase 11's 512-KF essential
+              graph sharded over 2 shards against the single-device graph;
+              two ranks spawned here on cuda:0 (gloo), their replicated
+              outputs bit-identical; entry.dryrun_multichip(8); phase 6's
+              System path with data_parallel=2 on a 2-shard virtual mesh,
+              every frame tracked, each kernel once per frame, its local
+              BAs through bundle_adjust_dist; prints the {"dist": {...}}
+              line.  Virtual shards share one card's SMs: the times check
+              the sharded program and are no scaling figure
+ 15. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -189,13 +205,14 @@ MIN_KEYFRAMES = 3            # inserted after initialization
 ATE_SPAN_FRACTION = 0.02     # Sim3-aligned ATE / path span (test_pipeline)
 MAPPING_STAGES = ("cullPoints", "triangulate", "fuse", "pointStats",
                   "localBA", "cullKeyframes")
-# phase 7: one and a half periods of the sweep.  The first keyframe after
+# phase 7: one period of the sweep (one and a half until phase 14 came:
+# the script's time limit stays).  The first keyframe after
 # initialization enters the map two batches late (16-frame batches, each
 # retired when the next is dispatched), so the early frames track on the
 # two-view initial map and carry most of the error; the ATE over shorter
 # prefixes is in the record
-N_BENCH_FRAMES = 450
-ATE_PREFIXES = (90, 200, 300)
+N_BENCH_FRAMES = 300
+ATE_PREFIXES = (90, 200)
 BENCH_BATCH = 16             # bench.py's frame_batch
 # phase 8: a blackout in the second half of the run, after the map has
 # grown past reset_if_lost_before_kfs (5), so the LOST path is taken
@@ -258,6 +275,20 @@ LOOP_CORRECT_AGREE = dict(R=1e-5, t=1e-5, pos=1e-5)
 # keyframes 10-13 against their true poses: camera-centre error after the
 # correction at most this share of the error before it
 LOOP_CORRECT_GAIN = 0.25
+# phase 14: the multi-device solvers on virtual shards of the one card
+DIST_CASE = (512, 24576)      # the BA twin's ring world (keyframes, points)
+DIST_SHARDS = (1, 2, 4, 8)
+DIST_ITERS = 3                # robust LM iterations per solve
+# final cost against the single-device flat/dense solve, relative: dense
+# sums the same reduced system in another order; cg is the JAX package's
+# sharded PCG (block-Jacobi, 48 steps, no warm start).  Measured on the
+# H100: dense <= 3.1e-5, cg <= 7.6e-5
+DIST_COST_AGREE = 1e-3
+DIST_MP_CASE = (64, 8192)     # the two-rank run's ring world
+DIST_LOCAL = 2                # shards per rank
+DIST_GRAPH_GAP = 1e-4         # two ranks: graph translations vs single
+DIST_CHILD_TIMEOUT_S = 120
+N_DIST_FRAMES = 40            # the System with data_parallel=2
 LOOP_GATES = dict(matches=("match",), ransac=("match", "ransac"),
                   refine=("match", "ransac", "refine"),
                   guided=("match", "ransac", "refine", "guided"),
@@ -662,7 +693,10 @@ def main():
     # --- 13. loop correction ----------------------------------------------
     loop_correct = loop_correct_phase(dev, card)
 
-    # --- 14. report --------------------------------------------------------
+    # --- 14. the multi-device solvers on virtual shards -------------------
+    dist = dist_phase(dev, card, kernels)
+
+    # --- 15. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
@@ -673,6 +707,7 @@ def main():
     print(json.dumps({"loop_solvers": loop_solvers}), flush=True)
     print(json.dumps({"loop_check": loop_check}), flush=True)
     print(json.dumps({"loop_correct": loop_correct}), flush=True)
+    print(json.dumps({"dist": dist}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1706,6 +1741,313 @@ def loop_correct_phase(dev, card):
         f"{ {k: round(v, 3) for k, v in cpu_r['ms'].items()} } (total "
         f"{cpu_r['total']:.1f}); {syncs} host syncs, sites {sync_w.sites}; "
         f"phase 13 took {record['phase_s']:.1f} s")
+    return record
+
+
+def ba_cost(problem, R, t, X):
+    """The non-robust reprojection cost sum(|r|^2 inv_sigma2) over the
+    valid edges of a flat ring-world problem at (R, t, X): the objective
+    that the sharded and single-device solves are held to (the free
+    monocular scale of one fixed camera leaves poses comparable only up
+    to a similarity)."""
+    import torch
+    from orb_slam_tpu_torch.solvers import bundle_adjust as ba
+    edges, cam = problem[4], problem[5]
+    r, _, _, z = ba._edge_terms(R, t, X, edges, cam)
+    ok = edges.valid & (z > 0)
+    return float(torch.sum((r * r).sum(-1) * edges.inv_sigma2 * ok))
+
+
+def dist_child():
+    """One rank of phase 14's two-process run (started by dist_phase with
+    the ORB_SLAM_TPU_* environment): 2 ranks x DIST_LOCAL shards over
+    cuda:0, gloo.  Prints one JSON line: digests of the replicated
+    outputs, which must be bit-identical on both ranks, and their gaps to
+    the single-device solves of this rank."""
+    import hashlib
+    import torch
+    from orb_slam_tpu_torch.config import SolverConfig
+    from orb_slam_tpu_torch.parallel import dist_ba, dist_pose_graph, hostmesh
+    from orb_slam_tpu_torch.solvers import bundle_adjust as ba
+    from orb_slam_tpu_torch.solvers import pose_graph as pg
+    hostmesh.declare_virtual_devices("cuda", DIST_LOCAL)
+    check(hostmesh.maybe_init_distributed("cuda"), "joined the group")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    D = hostmesh.device_count("cuda")
+
+    def digest(*xs):
+        h = hashlib.sha256()
+        for x in xs:
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    bcb = ba_city_bench()
+    K, P = DIST_MP_CASE
+    problem = bcb.make_problem(np.random.default_rng(SEED), K, P, str(dev))
+    Rs, ts, Xs, fixed, edges, cam, _ = problem
+    cfg = SolverConfig(global_ba_iters=DIST_ITERS)
+    single = ba.bundle_adjust(Rs, ts, Xs, fixed, edges, cam, cfg,
+                              two_phase=False, solver="dense")
+    c1 = ba_cost(problem, single.R, single.t, single.points)
+    out = dict(rank=hostmesh.process_index(), world=hostmesh.process_count(),
+               shards=D, backend=torch.distributed.get_backend())
+    for solver in ("dense", "cg"):
+        res = dist_ba.bundle_adjust_dist(
+            Rs, ts, Xs, fixed, edges, cam, cfg, two_phase=False,
+            n_shards=D, solver=solver)
+        out[solver] = dict(
+            digest=digest(res.R, res.t, res.points, res.edge_inliers),
+            cost_rel=abs(ba_cost(problem, res.R, res.t, res.points) / c1
+                         - 1.0))
+    gt, start, g_edges = drifted_ring(DIST_MP_CASE[0])
+    put = [x.to(dev) for x in start]
+    ge = pg.Sim3Edges(*[x.to(dev) for x in g_edges])
+    gfixed = torch.arange(len(put[0]), device=dev) == 0
+    s1, R1, t1, _ = dist_pose_graph.optimize_essential_graph_dist(
+        *put, gfixed, ge, n_iters=5, mesh=dist_ba.make_mesh(D, device=dev))
+    s0, R0, t0, _ = pg.optimize_essential_graph(*put, gfixed, ge, n_iters=5)
+    out["graph"] = dict(digest=digest(s1, R1, t1),
+                        t_gap=float((t1 - t0).abs().max()))
+    torch.distributed.destroy_process_group()
+    print("DIST_CHILD " + json.dumps(out), flush=True)
+
+
+def dist_two_process(card):
+    """Phase 14 (c): two ranks on the one card, spawned here; returns the
+    record.  Each rank has DIST_CHILD_TIMEOUT_S: a hung collective fails
+    the phase."""
+    import os
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ORB_SLAM_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               ORB_SLAM_TPU_NUM_PROCS="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dist_child()"],
+        cwd=root, env=dict(env, ORB_SLAM_TPU_PROC_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_CHILD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for p, text in zip(procs, logs):
+        check(p.returncode == 0, f"rank exited {p.returncode}: "
+              f"{text[-3000:]}")
+        line = [x for x in text.splitlines() if x.startswith("DIST_CHILD ")]
+        recs.append(json.loads(line[-1][len("DIST_CHILD "):]))
+    a, b = recs
+    for key in ("dense", "cg", "graph"):
+        check(a[key]["digest"] == b[key]["digest"],
+              f"two ranks ({a['backend']}, {a['shards']} shards over "
+              f"cuda:0): {key} outputs bit-identical on both ranks")
+    for key in ("dense", "cg"):
+        check(a[key]["cost_rel"] <= DIST_COST_AGREE,
+              f"two ranks: {key} cost within {a[key]['cost_rel']:.2e} of "
+              f"the single-device dense solve (<= {DIST_COST_AGREE})")
+    check(a["graph"]["t_gap"] <= DIST_GRAPH_GAP,
+          f"two ranks: sharded graph translations within "
+          f"{a['graph']['t_gap']:.2e} of the single-device graph (<= "
+          f"{DIST_GRAPH_GAP})")
+    return dict(ranks=recs, wall_s=time.perf_counter() - t0, card=card)
+
+
+def dist_phase(dev, card, kernels):
+    """Phase 14: the multi-device solvers on virtual shards of the one
+    card (parallel/).  (a) the ring world at DIST_CASE: sharded dense and
+    cg at each of DIST_SHARDS, both strategies, against the single-device
+    flat/dense solve on the card, ms per LM iteration, the psum's share of
+    it and peak memory; (b) phase 11's drifted ring sharded over 2 shards
+    against the single-device graph; (c) two ranks on the card
+    (dist_two_process); (d) entry.dryrun_multichip(8); (e) phase 6's
+    System path with data_parallel=2 on a 2-shard virtual mesh.  Virtual
+    shards share one card's SMs: the per-D times check the sharded
+    program, they are no scaling figure.  Returns the {"dist": ...}
+    record; every check raises."""
+    import torch
+    from orb_slam_tpu_torch import entry
+    from orb_slam_tpu_torch.config import MeshConfig, SolverConfig
+    from orb_slam_tpu_torch.parallel import dist_ba, dist_pose_graph, hostmesh
+    from orb_slam_tpu_torch.solvers import bundle_adjust as ba
+    from orb_slam_tpu_torch.solvers import pose_graph as pg
+    K, P = DIST_CASE
+    log(f"# phase 14: dist, sharded BA at {K} KF x {P} points on "
+        f"{DIST_SHARDS} virtual shards of one card, the sharded essential "
+        f"graph, two ranks, dryrun_multichip(8), the System with "
+        f"data_parallel=2")
+    t_phase = time.perf_counter()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    # (a) the ring world's BA, sharded and single-device
+    bcb = ba_city_bench()
+    problem = bcb.make_problem(np.random.default_rng(SEED), K, P, str(dev))
+    Rs, ts, Xs, fixed, edges, cam, n_obs = problem
+    cfg = SolverConfig(global_ba_iters=DIST_ITERS)
+    ba.bundle_adjust(Rs, ts, Xs, fixed, edges, cam,
+                     SolverConfig(global_ba_iters=1), two_phase=False)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    single = ba.bundle_adjust(Rs, ts, Xs, fixed, edges, cam, cfg,
+                              two_phase=False, solver="dense")
+    sync()
+    single_ms = (time.perf_counter() - t0) * 1e3 / DIST_ITERS
+    single_peak = torch.cuda.max_memory_allocated(dev)
+    c_single = ba_cost(problem, single.R, single.t, single.points)
+    c_start = ba_cost(problem, Rs, ts, Xs)
+    check(np.isfinite(c_single) and c_single < 0.5 * c_start,
+          f"single-device flat/dense, {K} KF x {P} points ({n_obs} edges), "
+          f"{DIST_ITERS} iterations: cost {c_start:.1f} -> {c_single:.1f}, "
+          f"{single_ms:.2f} ms/iter, peak {single_peak / 2**20:.0f} MiB")
+    cases = []
+    with hostmesh.virtual_devices("cuda", max(DIST_SHARDS)):
+        warm = dist_ba.partition_problem(Xs, edges, 2)
+        for solver in ("dense", "cg"):               # warm-up, not timed
+            dist_ba.bundle_adjust_sharded(
+                dist_ba.make_mesh(2, device=dev), Rs, ts, warm, fixed, cam,
+                cfg, n_iters=1, solver=solver)
+        for D in DIST_SHARDS:
+            mesh = dist_ba.make_mesh(D, device=dev)
+            for strategy in ("index", "spatial"):
+                prob = dist_ba.partition_problem(Xs, edges, D,
+                                                 strategy=strategy)
+                for solver in ("dense", "cg"):
+                    sync()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    mesh.psum_events = []
+                    t0 = time.perf_counter()
+                    R1, t1, Xsh, inl = dist_ba.bundle_adjust_sharded(
+                        mesh, Rs, ts, prob, fixed, cam, cfg,
+                        n_iters=DIST_ITERS, solver=solver)
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3 / DIST_ITERS
+                    psum_ms = sum(a.elapsed_time(b) for a, b in
+                                  mesh.psum_events) / DIST_ITERS
+                    mesh.psum_events = None
+                    X1 = Xsh.reshape(-1, 3)[:P]
+                    if prob.perm is not None:
+                        X1 = X1[torch.from_numpy(prob.perm).to(dev)]
+                    rel = abs(ba_cost(problem, R1, t1, X1) / c_single - 1.0)
+                    case = dict(
+                        shards=D, strategy=strategy, solver=solver,
+                        ms_per_iter=ms, psum_ms_per_iter=psum_ms,
+                        psum_share=psum_ms / ms,
+                        peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                        cost_rel_to_single_dense=rel)
+                    cases.append(case)
+                    check(np.isfinite(rel) and rel <= DIST_COST_AGREE,
+                          f"D={D} {strategy}/{solver}: cost within "
+                          f"{rel:.2e} of single dense (<= "
+                          f"{DIST_COST_AGREE}); {ms:.2f} ms/iter, "
+                          f"psum {psum_ms:.3f} ms ({psum_ms / ms:.1%}), peak "
+                          f"{case['peak_mem_bytes'] / 2**20:.0f} MiB")
+                    del R1, t1, Xsh, inl, X1
+        # (b) phase 11's essential graph sharded over 2 shards
+        n_kf = 512
+        gt, start, g_edges = drifted_ring(n_kf)
+        put = [x.to(dev) for x in start]
+        ge = pg.Sim3Edges(*[x.to(dev) for x in g_edges])
+        gfixed = torch.arange(n_kf, device=dev) == 0
+        n_it = SolverConfig().essential_graph_iters
+        radius = 0.3 / (2 * np.sin(np.pi / n_kf))
+        sizes = []
+        orig = dist_pose_graph.optimize_essential_graph_sharded
+
+        def spy(mesh, *a, **kw):
+            sizes.append(mesh.size)
+            return orig(mesh, *a, **kw)
+
+        for n_sh in (1, 2):                          # warm-up, not timed
+            dist_pose_graph.optimize_essential_graph_dist(
+                *put, gfixed, ge, n_iters=1, n_shards=n_sh)
+        pg.optimize_essential_graph(*put, gfixed, ge, n_iters=1)
+        dist_pose_graph.optimize_essential_graph_sharded = spy
+        try:
+            sync()
+            t0 = time.perf_counter()
+            s2, R2, t2, _ = dist_pose_graph.optimize_essential_graph_dist(
+                *put, gfixed, ge, n_iters=n_it, n_shards=2)
+            sync()
+            g2_ms = (time.perf_counter() - t0) * 1e3 / n_it
+        finally:
+            dist_pose_graph.optimize_essential_graph_sharded = orig
+        t0 = time.perf_counter()
+        s1, R1, t1, _ = pg.optimize_essential_graph(*put, gfixed, ge,
+                                                    n_iters=n_it)
+        sync()
+        g1_ms = (time.perf_counter() - t0) * 1e3 / n_it
+        g_gap = float((t2 - t1).abs().max()) / radius
+        check(sizes == [2] and g_gap <= EG_POSE_AGREE,
+              f"essential graph, {n_kf} KF, {len(g_edges.i)} edges, over "
+              f"{sizes} shards: translations within {g_gap:.2e} of the "
+              f"single-device graph's over the radius (<= {EG_POSE_AGREE}); "
+              f"{g2_ms:.2f} ms/iter sharded, {g1_ms:.2f} single")
+
+    # (c) two ranks on the one card
+    two = dist_two_process(card)
+
+    # (d) the dry run of the JAX package's entry, on 8 virtual shards
+    dry = entry.dryrun_multichip(8, device=dev)
+    check(dry["ba_finite"] and dry["cg_finite"] and dry["graph_finite"],
+          "dryrun_multichip(8): sharded BA, CG + spatial, sharded graph "
+          "finite")
+
+    # (e) the System path with its local BA landmark-sharded
+    calls = []
+    orig_dist = dist_ba.bundle_adjust_dist
+
+    def spy_ba(*a, **kw):
+        calls.append(kw.get("n_shards"))
+        return orig_dist(*a, **kw)
+
+    cfg_sys = system_config().replace(mesh=MeshConfig(data_parallel=2))
+    dist_ba.bundle_adjust_dist = spy_ba
+    try:
+        with hostmesh.virtual_devices("cuda", 2):
+            system = system_run(dev, card, cfg_sys, N_DIST_FRAMES,
+                                BA_INIT_WITHIN, 1.0)
+    finally:
+        dist_ba.bundle_adjust_dist = orig_dist
+    check(len(calls) >= MIN_KEYFRAMES and set(calls) == {2},
+          f"System with data_parallel=2: {len(calls)} local BAs went "
+          f"through bundle_adjust_dist over 2 shards")
+    for k in kernels:
+        k["dist_launches"] = system["launches"][k["name"]]
+    record = dict(
+        ba_case=dict(keyframes=K, points=P, edges=n_obs, iters=DIST_ITERS,
+                     single_dense_ms_per_iter=single_ms,
+                     single_dense_peak_mem_bytes=single_peak,
+                     cost_start=c_start, cost_single_dense=c_single,
+                     sharded=cases),
+        graph=dict(keyframes=n_kf, edges=len(g_edges.i), shards=2,
+                   ms_per_iter_sharded=g2_ms, ms_per_iter_single=g1_ms,
+                   t_gap_over_radius=g_gap),
+        two_ranks=two, dryrun_multichip=dry,
+        system=dict(frames=N_DIST_FRAMES, data_parallel=2,
+                    sharded_local_bas=len(calls),
+                    init_frame=system["init_frame"],
+                    tracked_fraction_after_init=system[
+                        "tracked_fraction_after_init"],
+                    ate_span_fraction=system["ate_span_fraction"],
+                    mapping_ms_per_keyframe=system[
+                        "mapping_ms_per_keyframe"],
+                    launches=system["launches"]),
+        note="virtual shards share one card: per-D times check the "
+             "sharded program, not scaling",
+        phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"  phase 14 took {record['phase_s']:.1f} s")
     return record
 
 

@@ -23,6 +23,7 @@ from ..config import SystemConfig
 from ..device import upload
 from ..geometry import camera as cam_mod
 from ..mapping import mapstore
+from ..parallel import dist_ba, hostmesh
 from ..solvers import bundle_adjust as ba
 from ..utils.timing import GLOBAL_TIMER as _timer
 from .. import native
@@ -351,7 +352,8 @@ class LocalMapper:
         obs = smap.obs_np[cams]
         kpv = smap.host["kf_kp_valid"][cams]
         s2 = self.cfg.extractor.sigma2
-        if self.cfg.solver.ba_layout == "grid":
+        # the sharded BA routes the flat edge list by landmark
+        if self.cfg.solver.ba_layout == "grid" and not self._sharded_ba(dev):
             # the camera-major [n_cam, N] table: the observation rows of
             # the window and fixed cameras ARE the edges, no compaction
             pt_loc = lut[np.where(obs >= 0, obs, mc.max_points)]
@@ -477,12 +479,23 @@ class LocalMapper:
         res = self._run_ba(Rs, ts, Xs, fixed, edges, two_phase=False)
         self._write_back(smap, res, book)
 
+    def _sharded_ba(self, device: torch.device) -> bool:
+        """mesh.data_parallel > 1 and the mesh has that many devices of
+        the map's kind: BA runs landmark-sharded."""
+        n = self.cfg.mesh.data_parallel
+        return n > 1 and hostmesh.device_count(device.type) >= n
+
     def _run_ba(self, Rs, ts, Xs, fixed, edges, two_phase: bool,
                 phase2: bool = True):
-        if self.cfg.mesh.data_parallel > 1:
-            raise NotImplementedError(
-                "the landmark-sharded BA (mesh.data_parallel > 1) comes with "
-                "the multi-device slice of the port")
+        """The landmark-sharded solver when the mesh asks for more than
+        one device and has them (the system's BA at scale), else the
+        single-device solver."""
+        mc = self.cfg.mesh
+        if self._sharded_ba(Rs.device):
+            return dist_ba.bundle_adjust_dist(
+                Rs, ts, Xs, fixed, edges, self.cam, self.cfg.solver,
+                two_phase=two_phase, n_shards=mc.data_parallel,
+                strategy=mc.ba_strategy, axis=mc.data_axis, phase2=phase2)
         return ba.bundle_adjust(Rs, ts, Xs, fixed, edges, self.cam,
                                 self.cfg.solver, two_phase=two_phase,
                                 placement=self.cfg.solver.ba_placement,

@@ -46,6 +46,7 @@ from ..geometry import se3, sim3
 from ..geometry.camera import CameraParams
 from ..mapping import mapstore
 from ..ops import match as match_ops
+from ..parallel import dist_pose_graph, hostmesh
 from ..place import database as db_mod
 from ..place import vocabulary as voc_mod
 from ..solvers import pnp, pose_graph, sim3_opt, sim3_solver
@@ -574,23 +575,22 @@ class LoopCloser:
 
     def _solve_graph(self, corr, edges: pose_graph.Sim3Edges, loop_kf: int):
         """optimize_essential_graph with the loop keyframe fixed, seeded
-        with the corrected poses, in true float32.  The JAX package shards
-        the graph over mesh.model_parallel devices when it has that many
-        and solves it on one device otherwise; the port solves on one
-        device in the same case, and raises where the JAX package would
-        shard (the sharded graph is not ported)."""
+        with the corrected poses, in true float32: keyframe-block sharded
+        over mesh.model_parallel devices when there are that many
+        (parallel/dist_pose_graph.py), else on one device."""
         s, R, t = corr
         n_shards = self.cfg.mesh.model_parallel
-        if n_shards > 1 and _n_devices(s.device) >= n_shards:
-            raise NotImplementedError(
-                f"the essential graph sharded over mesh.model_parallel="
-                f"{n_shards} devices (parallel/dist_pose_graph.py) comes "
-                "with the multi-device slice of the port")
         fixed = torch.arange(s.shape[0], device=s.device) == loop_kf
+        n_iters = self.cfg.solver.essential_graph_iters
+        if n_shards > 1 and hostmesh.device_count(s.device.type) >= n_shards:
+            s_new, R_new, t_new, _ = \
+                dist_pose_graph.optimize_essential_graph_dist(
+                    s, R, t, fixed, edges, n_iters=n_iters,
+                    n_shards=n_shards, axis=self.cfg.mesh.model_axis)
+            return s_new, R_new, t_new
         with true_fp32():
             s_new, R_new, t_new, _ = pose_graph.optimize_essential_graph(
-                s, R, t, fixed, edges,
-                n_iters=self.cfg.solver.essential_graph_iters)
+                s, R, t, fixed, edges, n_iters=n_iters)
         return s_new, R_new, t_new
 
     def _remap(self, smap: mapstore.SlamMap, snap, corr, new,
@@ -642,9 +642,3 @@ class LoopCloser:
             smap.set_kf_obs(ctx["obs"])
             smap.set_mp_valid(ctx["mp_valid"])
 
-
-def _n_devices(device: torch.device) -> int:
-    """The devices a sharded solve could use: the CUDA cards for a map on
-    the card, one for a map on the CPU (as JAX's default CPU backend has
-    one)."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1

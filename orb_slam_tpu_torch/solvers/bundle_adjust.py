@@ -393,9 +393,13 @@ def _lm_phase(Rs, ts, Xs, fixed, edges: BAEdges, cam: CameraParams, lam,
         Rs1, ts1 = se3.retract(Rs, ts, dxc)
         Xs1 = Xs + dxp
 
-        r1, _, _, z1 = _terms_any(Rs1, ts1, Xs1, edges, cam)
+        r1, _, _, _ = _terms_any(Rs1, ts1, Xs1, edges, cam)
+        # both costs sum the same edges, those in front of their camera
+        # before the step: an edge the step takes behind its camera keeps
+        # its (clamped-depth) residual, as g2o's edges do, so no step
+        # lowers the cost by hiding edges
         cost_old = _robust_cost(r, z, edges.inv_sigma2, active, delta2)
-        cost_new = _robust_cost(r1, z1, edges.inv_sigma2, active, delta2)
+        cost_new = _robust_cost(r1, z, edges.inv_sigma2, active, delta2)
         accept = ((cost_new < cost_old) & torch.all(torch.isfinite(dxc))
                   & torch.all(torch.isfinite(dxp)))
         Rs = torch.where(accept, Rs1, Rs)

@@ -138,6 +138,14 @@ def _normal_equations(s, R, t, fixed, edges: Sim3Edges):
     [7K] with the fixed vertices' rows and columns cleared and
     (1 - free + 1e-6) I added to every diagonal block, and the weighted
     cost sum(w r^2) at these poses."""
+    H, b, cost = _edge_system(s, R, t, edges)
+    H, b = _gauge(H, b, fixed)
+    return H, b, cost
+
+
+def _edge_system(s, R, t, edges: Sim3Edges):
+    """The edges' sums: H [7K, 7K], b [7K] and the cost sum(w r^2), before
+    the gauge (a sharded solve sums these over its shards)."""
     K = s.shape[0]
     dev, dt = s.device, s.dtype
     ei = edges.i.to(device=dev, dtype=torch.int64)
@@ -169,10 +177,16 @@ def _normal_equations(s, R, t, fixed, edges: Sim3Edges):
                                (ej[:, None] * 7 + a).reshape(-1)]),
                  torch.cat([bi, bj]).reshape(-1))
 
-    free = (~fixed.to(dev)).to(dt).repeat_interleave(7)      # [7K]
-    H = H.reshape(7 * K, 7 * K) * free[:, None] * free[None, :]
+    return H.reshape(7 * K, 7 * K), b, torch.sum(r * r * w[:, None])
+
+
+def _gauge(H, b, fixed):
+    """Clear the fixed vertices' rows and columns of (H, b) and add
+    (1 - free + 1e-6) I to every diagonal block."""
+    free = (~fixed.to(H.device)).to(H.dtype).repeat_interleave(7)  # [7K]
+    H = H * free[:, None] * free[None, :]
     H.diagonal().add_(1.0 - free + 1e-6)
-    return H, b * free, torch.sum(r * r * w[:, None])
+    return H, b * free
 
 
 def correct_points(

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Trace the keyframe decisions of the endurance run, in either package,
-on the CPU, and compare two traces frame by frame.
+and compare two traces frame by frame.
 
     python3 scripts/torch_kf_trace.py --package torch --frames 240 \\
-        --out torch.json
+        [--device cuda] --out torch.json
     python3 scripts/torch_kf_trace.py --package jax --frames 240 \\
         --out jax.json
     python3 scripts/torch_kf_trace.py --compare jax.json torch.json \\
@@ -30,8 +30,12 @@ tracker's map: a stale commit); and for the port, every answer of
 frames in both packages (``mapper_service_polls``; 0, the endurance
 runs' setting, is live timing); ``--max-points N`` sets the port's
 landmark pool (8192 in the endurance configuration).  The JAX run needs
-JAX; the port runs with device="cpu".  240 frames take a few minutes per
-package.
+JAX and runs on the CPU; the port runs on ``--device`` (``cpu`` by
+default, ``cuda`` for the card), so a card run and a CPU run at the same
+pin line up frame by frame.  Each frame's record then also holds the
+local-map match count and the mapping job's new and culled points, and
+``--compare`` names the first frame where two traces part and what parted
+there.  240 frames take a few minutes per package on the CPU.
 """
 import argparse
 import json
@@ -48,7 +52,8 @@ VOCAB = os.path.join(ROOT, "orb_slam_tpu", "data", "vocab100k.npz")
 SEED = 7
 
 
-def _system(package: str, service_polls: int, max_points: int = 0):
+def _system(package: str, service_polls: int, max_points: int = 0,
+            device: str = "cpu"):
     if package == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -65,7 +70,7 @@ def _system(package: str, service_polls: int, max_points: int = 0):
     if max_points:
         cfg = cfg.replace(map=dataclasses.replace(cfg.map,
                                                   max_points=max_points))
-    return er, System.create(cfg, device="cpu")
+    return er, System.create(cfg, device=device)
 
 
 def instrument(tracker, trace: dict, frame: list):
@@ -124,38 +129,64 @@ def instrument(tracker, trace: dict, frame: list):
 
 
 def run(package: str, n_frames: int, service_polls: int,
-        max_points: int = 0) -> dict:
-    er, system = _system(package, service_polls, max_points)
+        max_points: int = 0, device: str = "cpu") -> dict:
+    er, system = _system(package, service_polls, max_points, device)
     rng = np.random.default_rng(SEED)
     X, patches = er.build_world(rng)
     poses, _ = er.lap_poses(n_frames, 400, rng)
     K = system.tracker.cfg.camera.K
-    trace = dict(package=package, n_frames=n_frames,
+    trace = dict(package=package, n_frames=n_frames, device=device,
                  service_polls=service_polls, frames=[], decisions=[],
                  inserted=[], forced=[], commits=[], backpressure=[])
     frame = [0]
     instrument(system.tracker, trace, frame)
     t0 = time.perf_counter()
+    logs = []
     for i, (R, t) in enumerate(poses):
         frame[0] = i
-        m = system.process_image(er.render_image(X, patches, R, t, K),
-                                 timestamp=i / 30.0)
-        trace["frames"].append(dict(
-            image=i, event=m.get("event"), inliers=m.get("inliers"),
-            state=m.get("state_after"), kf_id=m.get("kf_id"),
-            n_keyframes=m.get("n_keyframes"),
-            n_map_points=m.get("n_map_points"),
-            mapping={k: v for k, v in m.get("mapping", {}).items()
-                     if isinstance(v, (bool, int, float))}))
+        logs.append(system.process_image(
+            er.render_image(X, patches, R, t, K), timestamp=i / 30.0))
         if i % 40 == 39:
             print(f"{package}: frame {i + 1}/{n_frames} "
                   f"{time.perf_counter() - t0:.0f} s "
                   f"kf={system.tracker.slam_map.n_kf}", flush=True)
     system.shutdown()
+    # read after the run: a pipelined frame's counts land in its metrics
+    # when it retires, after process_image has returned them
+    for i, m in enumerate(logs):
+        trace["frames"].append(dict(
+            image=i, event=m.get("event"), inliers=m.get("inliers"),
+            localmap_matches=m.get("localmap_matches"),
+            state=m.get("state_after"), kf_id=m.get("kf_id"),
+            n_keyframes=m.get("n_keyframes"),
+            n_map_points=m.get("n_map_points"),
+            mapping={k: v for k, v in m.get("mapping", {}).items()
+                     if isinstance(v, (bool, int, float))}))
     trace["tracked"] = sum(1 for r in system.tracker.trajectory
                            if r.tracked)
     trace["wall_s"] = time.perf_counter() - t0
     return trace
+
+
+FRAME_KEYS = ("state", "inliers", "localmap_matches", "n_map_points",
+              "n_keyframes", "mapping")
+
+
+def first_parting(a: dict, b: dict):
+    """The first image where two traces differ, and what differs there:
+    a frame's state, inlier or local-map match count, the map's landmark
+    or keyframe count, the scalar metrics of a job committed there (new,
+    culled and fused points, culled keyframes), or a keyframe decision."""
+    need = [{d["fid"]: d["need"] for d in t["decisions"]} for t in (a, b)]
+    for fa, fb in zip(a["frames"], b["frames"]):
+        i = fa["image"]
+        if need[0].get(i) != need[1].get(i):
+            return dict(image=i, what="keyframe decision",
+                        a=need[0].get(i), b=need[1].get(i))
+        for k in FRAME_KEYS:
+            if fa.get(k) != fb.get(k):
+                return dict(image=i, what=k, a=fa.get(k), b=fb.get(k))
+    return None
 
 
 def compare(a: dict, b: dict, first: int) -> dict:
@@ -178,7 +209,12 @@ def compare(a: dict, b: dict, first: int) -> dict:
                                if x["skipped"] and x["adopting"]),
             busy_skips=sum(1 for x in t["backpressure"]
                            if x["skipped"] and not x["adopting"]))
-    return {a["package"]: summary(a), b["package"]: summary(b)}
+    def name(t):
+        return f'{t["package"]}@{t.get("device", "cpu")}'
+    out = {name(a): summary(a)}
+    out[name(b) if name(b) != name(a) else name(b) + "'"] = summary(b)
+    out["first_parting"] = first_parting(a, b)
+    return out
 
 
 def main(argv=None) -> int:
@@ -189,6 +225,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-points", type=int, default=0,
                     help="the port's landmark pool (0: the endurance "
                          "configuration's 8192)")
+    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"),
+                    help="the port's device (the JAX run is on the CPU)")
     ap.add_argument("--out", default="kf_trace.json")
     ap.add_argument("--compare", nargs=2, metavar="TRACE")
     ap.add_argument("--from-frame", type=int, default=120)
@@ -202,14 +240,16 @@ def main(argv=None) -> int:
         return 0
     if args.package is None:
         ap.error("--package or --compare is required")
-    if args.max_points and args.package != "torch":
-        ap.error("--max-points applies to the port only")
+    if args.package != "torch" and (args.max_points
+                                    or args.device != "cpu"):
+        ap.error("--max-points and --device apply to the port only")
     trace = run(args.package, args.frames, args.service_polls,
-                args.max_points)
+                args.max_points, args.device)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(trace, f)
-    print(json.dumps(compare(trace, trace, 0)[args.package]), flush=True)
+    summary = next(iter(compare(trace, trace, 0).values()))
+    print(json.dumps(summary), flush=True)
     return 0
 
 

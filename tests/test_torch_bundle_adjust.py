@@ -12,6 +12,8 @@ points within 1e-3 (float32 LM steps summed in another order drift apart
 by a few ulps per iteration; measured here: cost 1e-6 relative, poses
 7e-7, points 3e-5); the returned inlier masks identical.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -120,10 +122,16 @@ def test_bundle_adjust_matches_jax(two_phase):
     np.testing.assert_array_equal(blob[-len(tin):] != 0, tin)
 
 
-def test_unported_layouts_raise():
+def test_unported_layouts_raise(monkeypatch):
     """Every layout, placement and solver of the JAX package runs in the
-    port; the landmark-sharded solver (mesh.data_parallel > 1) is the one
-    BA mode left, and the local mapper raises for it before solving."""
+    port, the landmark-sharded solver too: with mesh.data_parallel = 2 the
+    local mapper solves on one device while it has fewer devices (a map on
+    the CPU counts one), bit-equal to bundle_adjust, and through
+    bundle_adjust_dist once it has two (declared virtual CPU devices),
+    to the same poses within 1e-5 and points within 1e-3 (measured:
+    rotations 1.2e-7, translations 7.7e-7, points 3.3e-5; two fixed
+    cameras pin the gauge); an unknown solver raises."""
+    from orb_slam_tpu_torch.parallel import dist_ba, hostmesh
     from orb_slam_tpu_torch.pipeline.local_mapper import LocalMapper
     pr = _problem()
     edges = tba.BAEdges(
@@ -135,7 +143,72 @@ def test_unported_layouts_raise():
     cam = tcam(tc.CameraConfig(**CAM), device="cpu")
     lm = LocalMapper(cfg=tc.SystemConfig(mesh=tc.MeshConfig(
         data_parallel=2)), cam=cam)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        lm._run_ba(*args, two_phase=True)
+    ref = tba.bundle_adjust(*args, cam, two_phase=True)
+    one = lm._run_ba(*args, two_phase=True)
+    for a, b in zip(one[:4], ref[:4]):
+        assert torch.equal(a, b)
+    calls = []
+    orig = dist_ba.bundle_adjust_dist
+
+    def spy(*a, **kw):
+        calls.append(kw["n_shards"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(dist_ba, "bundle_adjust_dist", spy)
+    with hostmesh.virtual_devices("cpu", 2):
+        two = lm._run_ba(*args, two_phase=True)
+    assert calls == [2]
+    for a, b, tol in zip(two[:3], ref[:3], (1e-5, 1e-5, 1e-3)):
+        gap = float((a - b).abs().max())
+        assert gap <= tol, gap
+    assert torch.equal(two.edge_inliers, ref.edge_inliers)
     with pytest.raises(ValueError, match="solver"):
         tba.bundle_adjust(*args, cam, solver="sparse")
+
+
+def test_accept_counts_the_same_edges():
+    """A local BA window recorded from the port's endurance run (7
+    cameras, the last one, map keyframe 0, the fixed gauge; 428 points,
+    1826 edges;
+    tests/data/ba_behind_camera.npz).  One fixed camera leaves the scale
+    to the damping, and in phase 2 a float32 step along it took the points
+    behind their cameras: the old accept test summed only the edges in
+    front of their camera after the step, so the step lowered the cost by
+    dropping edges, and the port ended at cost 10558 with 3 inliers where
+    JAX ends at 385.5 with 1796.  Both costs now sum the edges in front
+    before the step, as g2o's edges count wherever the point goes.  Held
+    to JAX: final cost within 0.1% (measured 385.52 vs 385.50), inliers
+    within 1% (1799 vs 1796), no point behind a camera it is an inlier
+    of, and camera centres within 5e-5 of JAX's after a similarity
+    alignment (the free scale; measured 1.4e-6)."""
+    from orb_slam_tpu_torch.dataio.trajectory import umeyama_alignment
+    d = np.load(os.path.join(os.path.dirname(__file__), "data",
+                             "ba_behind_camera.npz"))
+    cfg_t, cfg_j = tc.SolverConfig(), jc.SolverConfig()
+    tres = tba.bundle_adjust(
+        t_of(d["Rs"]), t_of(d["ts"]), t_of(d["Xs"]), t_of(d["fixed"]),
+        tba.BAEdges(t_of(d["cam_idx"]).long(), t_of(d["pt_idx"]).long(),
+                    t_of(d["uv"]), t_of(d["inv_sigma2"]), t_of(d["valid"])),
+        tcam(tc.CameraConfig(**CAM), device="cpu"), cfg_t, two_phase=True)
+    jres = jba.bundle_adjust(
+        jnp.asarray(d["Rs"]), jnp.asarray(d["ts"]), jnp.asarray(d["Xs"]),
+        jnp.asarray(d["fixed"]),
+        jba.BAEdges(*(jnp.asarray(d[k]) for k in (
+            "cam_idx", "pt_idx", "uv", "inv_sigma2", "valid"))),
+        jcam(jc.CameraConfig(**CAM)), cfg_j, two_phase=True)
+    tc_, jc_ = float(tres.cost), float(jres.cost)
+    assert abs(tc_ - jc_) <= 1e-3 * jc_, (tc_, jc_)
+    n_t, n_j = int(tres.edge_inliers.sum()), int(np.sum(jres.edge_inliers))
+    assert abs(n_t - n_j) <= 0.01 * n_j, (n_t, n_j)
+    R, t, X = np_of(tres.R), np_of(tres.t), np_of(tres.points)
+    inl = np_of(tres.edge_inliers)
+    ci, pi = d["cam_idx"][inl], d["pt_idx"][inl]
+    z = np.einsum("oij,oj->oi", R[ci], X[pi])[:, 2] + t[ci, 2]
+    assert (z > 0).all()
+    c_t = -np.einsum("kji,kj->ki", R, t)
+    Rj, tj = np.asarray(jres.R), np.asarray(jres.t)
+    c_j = -np.einsum("kji,kj->ki", Rj, tj)
+    s, Ra, ta = umeyama_alignment(c_t.astype(np.float64),
+                                  c_j.astype(np.float64))
+    gap = np.abs(c_t @ (s * Ra).T + ta - c_j).max()
+    assert gap <= 5e-5, gap

@@ -30,6 +30,9 @@ Tolerances, and the gaps measured on this CPU:
     fixed, so the graph has no gauge freedom): R_TOL 5e-6 (measured
     6.0e-7) and T_TOL 1e-5 (measured 1.1e-6); the 20 float32 Gauss-Newton
     steps of each package round differently;
+  - the essential graph sharded in two (mesh.model_parallel = 2) against
+    the single-device graph: MP_TOL 1e-6 (measured 6.0e-8 in s and R,
+    2.4e-7 in t);
   - every valid landmark's position: POS_TOL 5e-5 (measured 3.8e-6, on
     positions up to 11.2 units);
   - against the truth, keyframes 10-13: camera centres 0.59-0.79 units off
@@ -71,6 +74,7 @@ SEED_TOL = 1e-6
 R_TOL = 5e-6
 T_TOL = 1e-5
 POS_TOL = 5e-5
+MP_TOL = 1e-6
 CENTRE_AFTER = 0.06
 ROT13_AFTER = 0.5
 CAM = dict(fx=500, fy=500, cx=320, cy=240, k1=0, k2=0, p1=0, p2=0, k3=0,
@@ -357,8 +361,13 @@ def test_model_parallel_rule(runs, monkeypatch):
     """mesh.model_parallel = 2: with fewer devices than shards (a map on
     the CPU counts one device, as JAX's default CPU backend has one) the
     graph is solved on one device, as the JAX loop closer does, to the
-    same poses; with as many devices as shards, where the JAX package
-    would shard, the port raises NotImplementedError."""
+    same poses; with as many devices as shards (two declared virtual CPU
+    devices) it is solved keyframe-block sharded over the model axis
+    (parallel/dist_pose_graph.py; the cut to E // 512 shards is lowered so
+    that this small graph splits in two), to the single-device poses within
+    MP_TOL (measured: 6.0e-8 in s and R, 2.4e-7 in t)."""
+    from orb_slam_tpu_torch.parallel import dist_pose_graph as tdpg
+    from orb_slam_tpu_torch.parallel import hostmesh
     t = runs["port"]
     seed = tuple(torch.from_numpy(x) for x in t["seed"])
     lc1, lc2 = _loop_closer(True), _loop_closer(True, model_parallel=2)
@@ -369,9 +378,20 @@ def test_model_parallel_rule(runs, monkeypatch):
     two = lc2._solve_graph(seed, t["edges"], MATCH)
     for a, b in zip(one, two):
         assert torch.equal(a, b)
-    monkeypatch.setattr(tlc_mod, "_n_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="model_parallel=2"):
-        lc2._solve_graph(seed, t["edges"], MATCH)
+    meshes = []
+    orig = tdpg.optimize_essential_graph_sharded
+
+    def spy(mesh, *a, **kw):
+        meshes.append((mesh.size, kw["axis"]))
+        return orig(mesh, *a, **kw)
+
+    monkeypatch.setattr(tdpg, "optimize_essential_graph_sharded", spy)
+    monkeypatch.setattr(tdpg, "MIN_EDGES_PER_SHARD", 1)
+    with hostmesh.virtual_devices("cpu", 2):
+        sharded = lc2._solve_graph(seed, t["edges"], MATCH)
+    assert meshes == [(2, "model")]
+    for a, b in zip(sharded, one):
+        assert _gap(a, b) <= MP_TOL
 
 
 def test_refresh_host(world):

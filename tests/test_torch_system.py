@@ -197,10 +197,13 @@ def test_port_alone_unpinned_tracks_to_end():
                for r in rows)
 
 
-def test_unported_modes_raise():
-    """The grid layout and the CG solver are ported; the landmark-sharded
-    BA (mesh.data_parallel > 1) is not, and a System configured for it
-    raises at its first bundle adjustment."""
+def test_unported_modes_raise(monkeypatch):
+    """The grid layout, the CG solver and the landmark-sharded BA are
+    ported: a System configured with mesh.data_parallel = 2 solves its
+    bundle adjustments on one device while the map's device kind has one
+    (a CPU), and through bundle_adjust_dist once it has two (declared
+    virtual CPU devices).  Without a card, the default device raises."""
+    from orb_slam_tpu_torch.parallel import dist_ba, hostmesh
     from orb_slam_tpu_torch.solvers import bundle_adjust as tba
     system = System.create(tc.SystemConfig(
         solver=tc.SolverConfig(ba_layout="grid", ba_placement="onehot"),
@@ -209,10 +212,27 @@ def test_unported_modes_raise():
                         pt_idx=torch.zeros(1, dtype=torch.int64),
                         uv=torch.zeros(1, 2), inv_sigma2=torch.ones(1),
                         valid=torch.ones(1, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        system.tracker.local_mapper._run_ba(
-            torch.eye(3)[None], torch.zeros(1, 3), torch.ones(1, 3),
-            torch.ones(1, dtype=torch.bool), edges, two_phase=False)
+    args = (torch.eye(3)[None], torch.zeros(1, 3), torch.ones(1, 3),
+            torch.ones(1, dtype=torch.bool), edges)
+    calls = []
+    orig = dist_ba.bundle_adjust_dist
+
+    def spy(*a, **kw):
+        calls.append(kw["n_shards"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(dist_ba, "bundle_adjust_dist", spy)
+    lm = system.tracker.local_mapper
+    one = lm._run_ba(*args, two_phase=False)
+    assert calls == []
+    with hostmesh.virtual_devices("cpu", 2):
+        two = lm._run_ba(*args, two_phase=False)
+    assert calls == [2]
+    # the one camera is fixed on both paths; the point, seen once, is
+    # held only by the damping, so each path moves it its own way
+    for a, b in zip(one[:2], two[:2]):
+        assert torch.equal(a, b)
+    assert two.points.shape == (1, 3) and torch.isfinite(two.points).all()
     if not torch.cuda.is_available():    # the default device is the card
         with pytest.raises(RuntimeError):
             System.create(tc.SystemConfig())
