@@ -5,8 +5,9 @@ configuration (async mapping, 16-frame batches), relocalisation, the
 command line with its dataset reader and map checkpoints, bundle
 adjustment on the grid layout, in the System and at scale, the
 loop-closing solvers (Sim3 RANSAC and refinement, the essential graph), the
-loop closer's geometric check of loop candidates, the loop correction, and
-the multi-device solvers on virtual shards of the card.
+loop closer's geometric check of loop candidates, the loop correction, the
+multi-device solvers on virtual shards of the card, and the per-level
+reference extractor with the vocabulary trainer's front end.
 
     python3 chip_smoke.py
 
@@ -167,7 +168,27 @@ Phases (any failure raises and the script exits non-zero):
               BAs through bundle_adjust_dist; prints the {"dist": {...}}
               line.  Virtual shards share one card's SMs: the times check
               the sharded program and are no scaling figure
- 15. report   a JSON line of per-kernel numbers (with each kernel's share
+ 15. extract_per_level  the per-level reference extractor
+              (frontend/extractor.py::extract_default: plain PyTorch ops,
+              no hand kernel) at the bench configuration on the main
+              path's first 640x480 frame: the card against the CPU (valid,
+              level, xy and response equal, angles within
+              EXTRACT_ANGLE_AGREE, descriptors <= EXTRACT_DESC_BITS bits
+              and equal on >= EXTRACT_DESC_EQUAL of the keypoints), with
+              score_harris too; the card's per-level against its batched
+              extractor on the image and configuration of
+              tests/test_extractor_batched.py with its bounds (overlap >=
+              PER_LEVEL_OVERLAP, <= PER_LEVEL_HAMMING bits on common
+              keypoints, > PER_LEVEL_MIN_COMMON of them), and on the frame
+              (overlap; the bits are reported: the JAX package's two paths
+              differ there by up to 13 bits too); neither
+              kernel launched by the per-level extractor; median ms per
+              frame of both extractors on the card over N_EXTRACT_FRAMES
+              frames after warm-up; the vocabulary trainer's extract_descs
+              (scripts/torch_train_vocabulary.py) on one training image,
+              card against CPU; prints the {"extract_per_level": {...}}
+              line
+ 16. report   a JSON line of per-kernel numbers (with each kernel's share
               of its bound and its registers and spill bytes from the
               build), the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
@@ -289,6 +310,17 @@ DIST_LOCAL = 2                # shards per rank
 DIST_GRAPH_GAP = 1e-4         # two ranks: graph translations vs single
 DIST_CHILD_TIMEOUT_S = 120
 N_DIST_FRAMES = 40            # the System with data_parallel=2
+# phase 15: the per-level reference extractor.  Card vs CPU: angles in
+# radians, descriptor bits per keypoint and the share bit-identical (the
+# bounds tests/test_torch_extract.py holds the batched extractor to);
+# per-level vs batched: tests/test_extractor_batched.py's bounds
+EXTRACT_ANGLE_AGREE = 1e-5
+EXTRACT_DESC_BITS = 2
+EXTRACT_DESC_EQUAL = 0.99
+PER_LEVEL_OVERLAP = 0.9
+PER_LEVEL_HAMMING = 8
+PER_LEVEL_MIN_COMMON = 30
+N_EXTRACT_FRAMES = 20         # timed frames of the sweep, after warm-up
 LOOP_GATES = dict(matches=("match",), ransac=("match", "ransac"),
                   refine=("match", "ransac", "refine"),
                   guided=("match", "ransac", "refine", "guided"),
@@ -696,7 +728,10 @@ def main():
     # --- 14. the multi-device solvers on virtual shards -------------------
     dist = dist_phase(dev, card, kernels)
 
-    # --- 15. report --------------------------------------------------------
+    # --- 15. the per-level reference extractor ---------------------------
+    extract = extract_per_level_phase(dev, card)
+
+    # --- 16. report --------------------------------------------------------
     print(card, flush=True)
     print(json.dumps({"system": system}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
@@ -708,6 +743,7 @@ def main():
     print(json.dumps({"loop_check": loop_check}), flush=True)
     print(json.dumps({"loop_correct": loop_correct}), flush=True)
     print(json.dumps({"dist": dist}), flush=True)
+    print(json.dumps({"extract_per_level": extract}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1741,6 +1777,206 @@ def loop_correct_phase(dev, card):
         f"{ {k: round(v, 3) for k, v in cpu_r['ms'].items()} } (total "
         f"{cpu_r['total']:.1f}); {syncs} host syncs, sites {sync_w.sites}; "
         f"phase 13 took {record['phase_s']:.1f} s")
+    return record
+
+
+def features_agree(a, b, what):
+    """Check two FrameFeatures of one image, from the card and the CPU:
+    valid, level, xy and response equal, angles and descriptors within
+    phase 15's bounds.  Returns (valid keypoints, max angle gap, max
+    bits, share of equal descriptors)."""
+    a = [x.cpu().numpy() for x in a]
+    b = [x.cpu().numpy() for x in b]
+    xy, resp, ang, lev, desc, valid = range(6)
+    check(np.array_equal(a[valid], b[valid])
+          and np.array_equal(a[lev], b[lev])
+          and np.array_equal(a[xy], b[xy])
+          and np.array_equal(a[resp], b[resp]),
+          f"{what}: valid, level, xy and response equal card vs CPU")
+    v = b[valid]
+    gap = float(np.abs(a[ang][v] - b[ang][v]).max())
+    bits = bit_diffs(a[desc][v], b[desc][v])
+    same = float((bits == 0).mean())
+    check(gap <= EXTRACT_ANGLE_AGREE,
+          f"{what}: angles within {EXTRACT_ANGLE_AGREE} (max {gap:.3g})")
+    check(bits.max() <= EXTRACT_DESC_BITS and same >= EXTRACT_DESC_EQUAL,
+          f"{what}: descriptors <= {EXTRACT_DESC_BITS} bits (max "
+          f"{bits.max()}), {same:.4f} bit-identical")
+    return int(v.sum()), gap, int(bits.max()), same
+
+
+def keypoint_table(feats):
+    """{(x, y, level): descriptor} of the valid keypoints, coordinates to
+    0.1 px, as tests/test_extractor_batched.py keys them."""
+    v = feats.valid.cpu().numpy()
+    return {(round(float(x), 1), round(float(y), 1), int(lv)): d
+            for (x, y), lv, d in zip(feats.xy.cpu().numpy()[v],
+                                     feats.level.cpu().numpy()[v],
+                                     feats.desc.cpu().numpy()[v])}
+
+
+def corners_image(h, w, rng, n_squares):
+    """Bright squares on a flat background: a copy of
+    tests/test_extractor.py::synthetic_corners_image (that module imports
+    JAX)."""
+    img = np.full((h, w), 30.0, np.float32)
+    count, cell = 0, 30
+    for gy in range(20, h - cell, cell):
+        for gx in range(20, w - cell, cell):
+            if count >= n_squares:
+                break
+            sz = int(rng.integers(10, 18))
+            y = gy + int(rng.integers(0, cell - sz - 1))
+            x = gx + int(rng.integers(0, cell - sz - 1))
+            img[y:y + sz, x:x + sz] = 200.0
+            count += 1
+    return img
+
+
+def per_level_vs_batched(img, ext, dev, per_level=None):
+    """(keypoint overlap over the smaller set, Hamming bits per common
+    keypoint) of the per-level and the batched extractor on `dev`."""
+    from orb_slam_tpu_torch.frontend import extractor as ex
+    from orb_slam_tpu_torch.frontend import extractor_batched as eb
+    a = keypoint_table(per_level if per_level is not None
+                       else ex.extract_default(img, ext, device=dev))
+    b = keypoint_table(eb.extract_batched_default(img, ext, device=dev))
+    common = a.keys() & b.keys()
+    ham = [int(bit_diffs(a[k][None], b[k][None])[0]) for k in common]
+    return len(common) / max(min(len(a), len(b)), 1), ham
+
+
+def median_ms(fn, frames, dev):
+    """Median wall ms per call of fn over `frames`, each call finished on
+    the device before the clock stops, after one warm-up call."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fn(frames[0])
+    sync()
+    ms = []
+    for img in frames:
+        t0 = time.perf_counter()
+        fn(img)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def extract_per_level_phase(dev, card):
+    """Phase 15: the per-level reference extractor at the bench
+    configuration, on `dev` against the CPU and against the batched
+    extractor on `dev`, timed, with the vocabulary trainer's front end.
+    Rehearse it here on the CPU with dev=torch.device('cpu')."""
+    import dataclasses
+    import os
+    import torch
+    import smoke_world as syn
+    from orb_slam_tpu_torch.frontend import extractor as ex
+    from orb_slam_tpu_torch.frontend import extractor_batched as eb
+    from orb_slam_tpu_torch.ops import describe_cuda, fast_cuda
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_train_vocabulary as tv
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cam_cfg, kw = bench_configs()
+    ext = kw["ext_cfg"]
+    frame, _ = first_frame(dev)
+    log(f"# phase 15: extract_per_level at {ext.n_levels} levels x "
+        f"{ext.scale_factor}, {ext.n_features} features in "
+        f"{ext.max_keypoints} slots, 640x480, on {dev}")
+    record = dict(card=card, device=str(dev), n_levels=ext.n_levels,
+                  n_features=ext.n_features, slots=ext.max_keypoints)
+
+    # (1) card vs CPU, and which kernels the per-level path launches
+    fast_cuda.fast_nms_blur_stack.launches = 0
+    describe_cuda.orient_describe.launches = 0
+    on_dev = ex.extract_default(frame, ext, device=dev)
+    record["per_level_kernel_launches"] = {
+        "fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
+        "orient_describe": describe_cuda.orient_describe.launches}
+    check(sum(record["per_level_kernel_launches"].values()) == 0,
+          "the per-level extractor launches neither hand kernel")
+    on_cpu = ex.extract_default(frame, ext, device=cpu)
+    n, gap, bits, same = features_agree(on_dev, on_cpu, "extract_default")
+    check(n >= 0.9 * ext.n_features, f"{n} valid keypoints")
+    record.update(valid=n, angle_gap=gap, max_bits=bits, desc_equal=same)
+
+    # (2) per-level against batched, both on the device: on the image and
+    # configuration of tests/test_extractor_batched.py with its bounds,
+    # then on this frame (where the JAX package's own two paths differ by
+    # up to 13 bits on 929 common keypoints, on the CPU)
+    corners = corners_image(240, 320, np.random.default_rng(42), 30)
+    small = dataclasses.replace(ext, n_features=200, max_keypoints=256,
+                                n_levels=4)
+    overlap, ham = per_level_vs_batched(corners, small, dev)
+    check(overlap >= PER_LEVEL_OVERLAP,
+          f"per-level vs batched, the test's image: {overlap:.3f} overlap")
+    check(len(ham) > PER_LEVEL_MIN_COMMON and max(ham) <= PER_LEVEL_HAMMING,
+          f"per-level vs batched, the test's image: <= {PER_LEVEL_HAMMING} "
+          f"bits on {len(ham)} common keypoints (max {max(ham)})")
+    record["batched_test_image"] = dict(overlap=overlap, common=len(ham),
+                                        max_bits=max(ham))
+    overlap, ham = per_level_vs_batched(frame, ext, dev, on_dev)
+    check(overlap >= PER_LEVEL_OVERLAP,
+          f"per-level vs batched, this frame: {overlap:.3f} overlap, "
+          f"{len(ham)} common, max {max(ham)} bits")
+    record["batched_frame"] = dict(
+        overlap=overlap, common=len(ham), max_bits=max(ham),
+        equal=float(np.mean(np.asarray(ham) == 0)))
+
+    # (3) score_harris, card vs CPU
+    hcfg = dataclasses.replace(ext, score_harris=True)
+    n, gap, bits, same = features_agree(
+        ex.extract_default(frame, hcfg, device=dev),
+        ex.extract_default(frame, hcfg, device=cpu), "score_harris")
+    record["harris"] = dict(valid=n, angle_gap=gap, max_bits=bits,
+                            desc_equal=same)
+
+    # (4) ms per frame of both extractors on the device
+    renderer = syn.SceneRenderer(np.random.default_rng(SEED), cam_cfg.K)
+    frames = [renderer.render(*syn.pose_at(FIRST_TRACKED + k))
+              for k in range(N_EXTRACT_FRAMES)]
+    fast_cuda.fast_nms_blur_stack.launches = 0
+    describe_cuda.orient_describe.launches = 0
+    record["per_level_ms"] = median_ms(
+        lambda img: ex.extract_default(img, ext, device=dev), frames, dev)
+    per_level_launches = (fast_cuda.fast_nms_blur_stack.launches
+                          + describe_cuda.orient_describe.launches)
+    record["batched_ms"] = median_ms(
+        lambda img: eb.extract_batched_default(img, ext, device=dev),
+        frames, dev)
+    record["timed_kernel_launches"] = {
+        "fast_nms_blur": fast_cuda.fast_nms_blur_stack.launches,
+        "orient_describe": describe_cuda.orient_describe.launches}
+    if dev.type == "cuda":
+        check(per_level_launches == 0 and all(
+            v == N_EXTRACT_FRAMES + 1
+            for v in record["timed_kernel_launches"].values()),
+            f"timed runs: the per-level extractor launches no kernel, the "
+            f"batched one each kernel once per frame "
+            f"({record['timed_kernel_launches']})")
+    log(f"  per-level {record['per_level_ms']:.2f} ms per frame, batched "
+        f"{record['batched_ms']:.2f} (median of {N_EXTRACT_FRAMES}, {card})")
+
+    # (5) the vocabulary trainer's front end on one training image
+    img = tv.render_patch_world(np.random.default_rng(0))
+    d_dev = tv.extract_descs(img, device=dev)
+    d_cpu = tv.extract_descs(img, device=cpu)
+    check(d_dev.shape == d_cpu.shape and len(d_dev) > 500,
+          f"extract_descs: {d_dev.shape} card, {d_cpu.shape} CPU")
+    vbits = bit_diffs(d_dev, d_cpu)
+    vsame = float((vbits == 0).mean())
+    check(vbits.max() <= EXTRACT_DESC_BITS and vsame >= EXTRACT_DESC_EQUAL,
+          f"extract_descs: <= {EXTRACT_DESC_BITS} bits (max {vbits.max()}),"
+          f" {vsame:.4f} bit-identical")
+    record["vocab_descs"] = dict(rows=int(len(d_dev)),
+                                 max_bits=int(vbits.max()), equal=vsame)
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {record['phase_s']:.1f} s")
     return record
 
 

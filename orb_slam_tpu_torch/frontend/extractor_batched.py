@@ -202,3 +202,12 @@ def extract_batched(image, cfg: ExtractorConfig, n_features: int = None,
         lvl_of, desc, vflat = lvl_of[idx], desc[idx], vflat[idx]
     return FrameFeatures(xy=xy0, response=resp, angle=angle, level=lvl_of,
                          desc=desc, valid=vflat)
+
+
+def extract_batched_default(image, cfg: ExtractorConfig,
+                            device=None) -> FrameFeatures:
+    """``extract_batched`` at the configuration's feature and slot counts.
+    The JAX version's ``use_pallas`` switch has no counterpart: on the card
+    the port always runs its two kernels."""
+    return extract_batched(image, cfg, cfg.n_features, cfg.max_keypoints,
+                           device)

@@ -33,6 +33,14 @@ class CameraParams(NamedTuple):
     max_x: torch.Tensor
     max_y: torch.Tensor
 
+    @property
+    def inv_fx(self) -> torch.Tensor:
+        return 1.0 / self.fx
+
+    @property
+    def inv_fy(self) -> torch.Tensor:
+        return 1.0 / self.fy
+
 
 def distort_normalized(xn: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     """Apply k1..k3,p1,p2 to normalized coords xn[..., 2]."""

@@ -16,7 +16,8 @@ def _port_files():
              os.path.join(ROOT, "scripts", "torch_frame_profile.py"),
              os.path.join(ROOT, "scripts", "torch_system_profile.py"),
              os.path.join(ROOT, "scripts", "torch_bench.py"),
-             os.path.join(ROOT, "scripts", "torch_ba_city_bench.py")]
+             os.path.join(ROOT, "scripts", "torch_ba_city_bench.py"),
+             os.path.join(ROOT, "scripts", "torch_train_vocabulary.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
